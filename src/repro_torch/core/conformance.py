@@ -1,0 +1,109 @@
+"""Conformance cases and oracle tolerances of the ported kernels.
+
+The port of ``repro.core.conformance`` for the kernels ported so far:
+
+  * ``CASES`` gives every ported kernel one small, deterministic input, as
+    **numpy** arrays drawn from ``numpy.random.default_rng(seed)`` — the
+    same arrays feed the JAX package in the cross-framework tests, and
+    ``case_tensors`` moves them onto any device (a kernel without a case
+    FAILS conformance — coverage is mandatory);
+  * ``ORACLE_TOL`` is the port's own copy of the reference's rows for the
+    ported kernels (the tests hold the two tables equal);
+  * ``conformance_pairs()`` derives the (kernel, backend) matrix from the
+    live registry; ``check_backend`` runs one cell of it, raising
+    ``BackendUnavailableError`` when this host cannot run the pair.
+
+Importing this module registers nothing: callers import
+``repro_torch.kernels`` (or one family's ``ops``) first.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.portable import registry
+
+Tolerance = Union[str, Tuple[float, float]]  # "bitwise" | (rtol, atol)
+Case = Tuple[Tuple[np.ndarray, ...], dict]
+
+
+def _stencil_case() -> Case:
+    u = np.random.default_rng(0).standard_normal((8, 64, 128))
+    return (u.astype(np.float32),), {}
+
+
+def _stream_case(nargs: int) -> Case:
+    r = np.random.default_rng(1)
+    n = 1 << 17
+    return tuple(r.standard_normal(n).astype(np.float32)
+                 for _ in range(nargs)), {}
+
+
+CASES: Dict[str, Callable[[], Case]] = {
+    "stencil7": _stencil_case,
+    "babelstream.copy": lambda: _stream_case(1),
+    "babelstream.mul": lambda: _stream_case(1),
+    "babelstream.add": lambda: _stream_case(2),
+    "babelstream.triad": lambda: _stream_case(2),
+    "babelstream.dot": lambda: _stream_case(2),
+}
+
+#: per-kernel tolerance vs the oracle — the reference's rows
+ORACLE_TOL: Dict[str, Tolerance] = {
+    "stencil7": (1e-5, 1e-5),
+    "babelstream.copy": (1e-6, 1e-6),
+    "babelstream.mul": (1e-6, 1e-6),
+    "babelstream.add": (1e-6, 1e-6),
+    "babelstream.triad": (1e-6, 1e-6),
+    "babelstream.dot": (1e-4, 1e-3),
+}
+
+
+def as_tensors(arrays: Tuple[np.ndarray, ...],
+               device: Union[str, torch.device]) -> Tuple[torch.Tensor, ...]:
+    """numpy case arrays -> tensors on ``device`` (dtype kept)."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in arrays)
+
+
+def case_tensors(kernel: str, device: Union[str, torch.device] = "cpu"):
+    """``(args, kwargs)`` of ``kernel``'s case, with args on ``device``."""
+    case = CASES.get(kernel)
+    if case is None:
+        raise AssertionError(
+            f"kernel {kernel!r} has no conformance case — every registered "
+            f"kernel must add one to repro_torch.core.conformance.CASES")
+    arrays, kwargs = case()
+    return as_tensors(arrays, device), kwargs
+
+
+def oracle_tolerance(kernel: str, backend: str) -> Tolerance:
+    return ORACLE_TOL.get(kernel)
+
+
+def conformance_pairs() -> List[Tuple[str, str]]:
+    """Every (kernel, backend) cell of the live registry, sorted."""
+    return [(name, b) for name in registry.names()
+            for b in sorted(registry.get(name).backends)]
+
+
+def check_backend(kernel: str, backend: str,
+                  device: Union[str, torch.device] = "cpu") -> float:
+    """Run one conformance cell on ``device``; return the max abs error.
+
+    Raises ``KeyError`` for an unregistered kernel/backend,
+    ``AssertionError`` for a missing case or tolerance or a mismatch, and
+    ``BackendUnavailableError`` when this host cannot run the pair.
+    """
+    k = registry.get(kernel)
+    tol = oracle_tolerance(kernel, backend)
+    if tol is None:
+        raise AssertionError(
+            f"kernel {kernel!r} has no conformance tolerance — add it to "
+            f"repro_torch.core.conformance.ORACLE_TOL")
+    args, kwargs = case_tensors(kernel, device)
+    rtol, atol = (0.0, 0.0) if tol == "bitwise" else tol
+    return k.validate(*args, backend=backend, rtol=rtol, atol=atol, **kwargs)

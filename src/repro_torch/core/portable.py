@@ -1,0 +1,412 @@
+"""PortableKernel — the paper's portable-kernel registry on PyTorch.
+
+The port of ``repro.core.portable``.  A *kernel spec* is a named operation
+with a figure-of-merit model (FLOPs / moved bytes from the input shapes —
+paper Eqs. 1-3); *backends* are alternative implementations of it:
+
+  * ``torch``            plain eager PyTorch, the oracle (``xla`` in the
+                         reference) — runs on any device;
+  * ``triton`` / ``cuda`` the kernel written by hand for Hopper (``pallas``
+                         in the reference) — CUDA tensors only.
+
+Two rules differ from the reference on purpose:
+
+  * the default backend follows the tensors: CUDA tensors go to the
+    kernel's hand-written backend and never silently to the oracle; CPU
+    tensors go to ``torch``;
+  * an availability probe looks only for the toolchain (a CUDA device and
+    ``nvcc``, or a CUDA device and ``triton``).  It never tries a build,
+    and a build or launch that fails raises to the caller instead of
+    turning into "unavailable".
+
+Tuned dispatch (``tuned=True``) and telemetry spans belong to later ports
+of ``core/tuning.py`` and ``core/telemetry/``; tunable spaces are declared
+here already.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import itertools
+import time
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple, Union)
+
+import numpy as np
+import torch
+
+__all__ = [
+    "Backend",
+    "BackendUnavailableError",
+    "TunableSpace",
+    "PortableKernel",
+    "KernelRegistry",
+    "registry",
+    "register_kernel",
+    "get_kernel",
+    "cuda_probe",
+    "triton_probe",
+    "time_call",
+]
+
+#: availability probe: None when the backend can run here, else the reason
+Probe = Callable[[], Optional[str]]
+
+
+class BackendUnavailableError(RuntimeError):
+    """A backend exists in the registry but cannot run on this host."""
+
+
+def _runs_anywhere() -> Optional[str]:
+    return None
+
+
+def _no_cuda_device() -> Optional[str]:
+    if not torch.cuda.is_available():
+        return f"torch {torch.__version__} sees no CUDA device"
+    return None
+
+
+def cuda_probe() -> Optional[str]:
+    """A ``cuda`` backend needs a CUDA device and ``nvcc`` (the kernels
+    are compiled from ``csrc/`` at first use)."""
+    from repro_torch import _build
+    reason = _no_cuda_device()
+    if reason is None and _build.nvcc_path() is None:
+        reason = "nvcc not found on PATH or under $CUDA_HOME/bin"
+    return reason
+
+
+def triton_probe() -> Optional[str]:
+    """A ``triton`` backend needs a CUDA device and the triton package."""
+    reason = _no_cuda_device()
+    if reason is None and importlib.util.find_spec("triton") is None:
+        reason = "the triton package is not installed"
+    return reason
+
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """One implementation of a kernel spec."""
+
+    name: str
+    fn: Callable[..., Any]
+    probe: Probe = _runs_anywhere
+
+    def unavailable_reason(self) -> Optional[str]:
+        return self.probe()
+
+    def is_available(self) -> bool:
+        return self.probe() is None
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        return self.fn(*args, **kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class TunableSpace:
+    """Declared tunable parameters of one backend.
+
+    ``params`` maps parameter name -> candidate values (declaration order is
+    the deterministic sweep order).  ``constraint(point, *args, **kwargs)``
+    filters points that are invalid for the concrete inputs.
+    """
+
+    params: Mapping[str, Tuple[Any, ...]]
+    constraint: Optional[Callable[..., bool]] = None
+
+    def points(self) -> Iterator[Dict[str, Any]]:
+        """Deterministic cartesian product over the declared grid."""
+        names = list(self.params)
+        for values in itertools.product(*(self.params[n] for n in names)):
+            yield dict(zip(names, values))
+
+    def valid_points(self, *args: Any, **kwargs: Any) -> List[Dict[str, Any]]:
+        return [p for p in self.points()
+                if self.constraint is None or self.constraint(p, *args,
+                                                              **kwargs)]
+
+
+def _tensors(args: Sequence[Any], kwargs: Mapping[str, Any]):
+    for v in itertools.chain(args, kwargs.values()):
+        if isinstance(v, torch.Tensor):
+            yield v
+
+
+def _cuda_device(args: Sequence[Any],
+                 kwargs: Mapping[str, Any]) -> Optional[torch.device]:
+    for t in _tensors(args, kwargs):
+        if t.device.type == "cuda":
+            return t.device
+    return None
+
+
+def _leaves(out: Any) -> List[torch.Tensor]:
+    if isinstance(out, (tuple, list)):
+        return [leaf for o in out for leaf in _leaves(o)]
+    return [torch.as_tensor(out)]
+
+
+@dataclasses.dataclass
+class PortableKernel:
+    """A named kernel spec with multiple backends and a figure-of-merit model.
+
+    ``native`` names the hand-written backend, the default for CUDA tensors.
+    ``flops_model`` / ``bytes_model`` take the same arguments as the kernel
+    and return the paper-defined operation/byte counts.
+    """
+
+    name: str
+    backends: Dict[str, Backend] = dataclasses.field(default_factory=dict)
+    oracle: str = "torch"
+    native: Optional[str] = None
+    flops_model: Optional[Callable[..., float]] = None
+    bytes_model: Optional[Callable[..., float]] = None
+    doc: str = ""
+    tunables: Dict[str, TunableSpace] = dataclasses.field(default_factory=dict)
+    #: backend name -> static performance expectations (metadata only until
+    #: the static auditor is ported)
+    roofline_contracts: Dict[str, Dict[str, Any]] = dataclasses.field(
+        default_factory=dict)
+
+    # ---- registration -------------------------------------------------
+    def add_backend(self, name: str, fn: Callable[..., Any],
+                    probe: Probe = _runs_anywhere) -> None:
+        self.backends[name] = Backend(name=name, fn=fn, probe=probe)
+
+    def declare_tunables(
+            self, backends: Union[str, Sequence[str]], *,
+            constraint: Optional[Callable[..., bool]] = None,
+            **params: Sequence[Any]) -> None:
+        """Declare the tunable grid for one or more backends."""
+        space = TunableSpace(
+            params={k: tuple(v) for k, v in params.items()},
+            constraint=constraint)
+        names = [backends] if isinstance(backends, str) else list(backends)
+        for n in names:
+            self.tunables[n] = space
+
+    def tunable_space(self, backend: str) -> Optional[TunableSpace]:
+        return self.tunables.get(backend)
+
+    def declare_roofline_contract(
+            self, backends: Union[str, Sequence[str]], *,
+            bound: Optional[str] = None,
+            traffic_inflation_limit: Optional[float] = None) -> None:
+        """Record the expected roofline verdict ("memory" | "compute" |
+        "collective") and traffic-inflation limit of a backend."""
+        if bound is not None and bound not in ("memory", "compute",
+                                               "collective"):
+            raise ValueError(f"unknown roofline bound {bound!r}")
+        contract: Dict[str, Any] = {}
+        if bound is not None:
+            contract["bound"] = bound
+        if traffic_inflation_limit is not None:
+            contract["traffic_inflation_limit"] = \
+                float(traffic_inflation_limit)
+        names = [backends] if isinstance(backends, str) else list(backends)
+        for n in names:
+            self.roofline_contracts[n] = contract
+
+    def roofline_contract(self, backend: str) -> Dict[str, Any]:
+        return self.roofline_contracts.get(backend, {})
+
+    def backend(self, name: Optional[str] = None) -> Backend:
+        if name is None:
+            name = self.oracle
+        if name not in self.backends:
+            raise KeyError(
+                f"kernel {self.name!r} has no backend {name!r}; "
+                f"have {sorted(self.backends)}")
+        return self.backends[name]
+
+    def available_backends(self) -> List[str]:
+        return [n for n in sorted(self.backends)
+                if self.backends[n].is_available()]
+
+    def default_backend(self, *args: Any, **kwargs: Any) -> str:
+        """The hand-written backend for CUDA tensors, the oracle otherwise.
+
+        No fallback: on the card the hand-written backend is chosen even
+        when it cannot run, so calling it raises ``BackendUnavailableError``
+        instead of quietly timing the oracle.
+        """
+        if _cuda_device(args, kwargs) is None:
+            return self.oracle
+        if self.native is None:
+            raise BackendUnavailableError(
+                f"kernel {self.name!r} has no hand-written backend for CUDA "
+                f"tensors (registered: {sorted(self.backends)})")
+        return self.native
+
+    def _require_available(self, name: str) -> Backend:
+        b = self.backend(name)
+        reason = b.unavailable_reason()
+        if reason is not None:
+            raise BackendUnavailableError(
+                f"kernel {self.name!r} backend {name!r} is not available on "
+                f"this host: {reason} "
+                f"(available: {self.available_backends()})")
+        return b
+
+    def __call__(self, *args: Any, backend: Optional[str] = None,
+                 **kwargs: Any) -> Any:
+        """Run the kernel on ``backend`` (default: see ``default_backend``)."""
+        name = backend if backend is not None else \
+            self.default_backend(*args, **kwargs)
+        return self._require_available(name)(*args, **kwargs)
+
+    # ---- validation ----------------------------------------------------
+    def validate(self, *args: Any, backend: str,
+                 rtol: Optional[float] = None, atol: Optional[float] = None,
+                 **kwargs: Any) -> float:
+        """Assert ``backend`` matches the oracle; return the max abs error.
+
+        Default tolerances come from ``repro_torch.core.conformance``
+        (``"bitwise"`` -> 0/0, an unlisted kernel -> (1e-5, 1e-5)); explicit
+        ``rtol``/``atol`` override per call.  The comparison runs on the
+        tensors' own device, in float64, and counts a NaN as a mismatch.
+        """
+        if rtol is None or atol is None:
+            from repro_torch.core import conformance
+            tol = conformance.oracle_tolerance(self.name, backend)
+            d_rtol, d_atol = ((0.0, 0.0) if tol == "bitwise"
+                              else tol if tol is not None else (1e-5, 1e-5))
+            rtol = d_rtol if rtol is None else rtol
+            atol = d_atol if atol is None else atol
+        want = _leaves(self._require_available(self.oracle)(*args, **kwargs))
+        got = _leaves(self._require_available(backend)(*args, **kwargs))
+        if len(want) != len(got):
+            raise AssertionError(
+                f"{self.name}[{backend}] returned {len(got)} outputs, "
+                f"oracle {len(want)}")
+        worst = 0.0
+        for w, g in zip(want, got):
+            if w.shape != g.shape:
+                raise AssertionError(
+                    f"{self.name}[{backend}] shape {tuple(g.shape)} != "
+                    f"oracle {tuple(w.shape)}")
+            w, g = w.double(), g.double()
+            err = (g - w).abs()
+            bad = ~(err <= atol + rtol * w.abs())
+            if bool(bad.any()):
+                raise AssertionError(
+                    f"{self.name}[{backend}] vs {self.oracle}: "
+                    f"{int(bad.sum())}/{w.numel()} elements outside "
+                    f"rtol={rtol} atol={atol}; max abs err "
+                    f"{float(err.nan_to_num(float('inf')).max())}")
+            if err.numel():
+                worst = max(worst, float(err.max()))
+        return worst
+
+    # ---- measurement ---------------------------------------------------
+    def time_backend(self, *args: Any, backend: str, iters: int = 10,
+                     warmup: int = 2, **kwargs: Any) -> float:
+        """Median seconds per call after ``warmup`` calls (paper §3).
+
+        CUDA tensors are timed with CUDA events around batches of calls;
+        CPU tensors with the host clock around each call.  See
+        ``time_call``.
+        """
+        fn = self._require_available(backend)
+        return time_call(fn, *args, iters=iters, warmup=warmup, **kwargs)
+
+    def figure_of_merit(self, elapsed_s: float, *args: Any,
+                        **kwargs: Any) -> Dict[str, float]:
+        """GFLOP/s and GB/s from the paper's operation/byte models."""
+        out: Dict[str, float] = {"seconds": elapsed_s}
+        if self.flops_model is not None:
+            out["gflops_per_s"] = self.flops_model(*args, **kwargs) / elapsed_s / 1e9
+        if self.bytes_model is not None:
+            out["gbytes_per_s"] = self.bytes_model(*args, **kwargs) / elapsed_s / 1e9
+        return out
+
+
+#: back-to-back calls between the two CUDA events of one timing sample
+CALLS_PER_SAMPLE = 10
+
+
+def time_call(fn: Callable[..., Any], *args: Any, iters: int = 10,
+              warmup: int = 2, **kwargs: Any) -> float:
+    """Median seconds per call of ``fn(*args, **kwargs)`` over ``iters``
+    samples.
+
+    With a CUDA tensor among the arguments a sample is ``CALLS_PER_SAMPLE``
+    back-to-back calls between two CUDA events on the current stream, and
+    the device is synchronised once at the end.  The host enqueues the next
+    call while the device runs the last, so the figure is device time per
+    call — unless the host cannot keep up, and then it is the host's rate,
+    which is what a caller gets.  (Events around every single call would
+    add the host's enqueue jitter whenever it is near the kernel's time.)
+    Otherwise the host clock times each call.
+    """
+    device = _cuda_device(args, kwargs)
+    for _ in range(warmup):
+        fn(*args, **kwargs)
+    if device is None:
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn(*args, **kwargs)
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times))
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        marks = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        for start, end in marks:
+            start.record()
+            for _ in range(CALLS_PER_SAMPLE):
+                fn(*args, **kwargs)
+            end.record()
+        torch.cuda.synchronize()
+    ms = np.median([s.elapsed_time(e) for s, e in marks]) / CALLS_PER_SAMPLE
+    return float(ms) / 1e3
+
+
+class KernelRegistry:
+    """Global name -> PortableKernel map (the port's kernel catalogue)."""
+
+    def __init__(self) -> None:
+        self._kernels: Dict[str, PortableKernel] = {}
+
+    def register(self, kernel: PortableKernel) -> PortableKernel:
+        if kernel.name in self._kernels:
+            raise ValueError(f"duplicate kernel {kernel.name!r}")
+        self._kernels[kernel.name] = kernel
+        return kernel
+
+    def get(self, name: str) -> PortableKernel:
+        try:
+            return self._kernels[name]
+        except KeyError:
+            raise KeyError(
+                f"no kernel {name!r} registered; "
+                f"registered kernels: {self.names()}") from None
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._kernels
+
+    def names(self) -> Sequence[str]:
+        return sorted(self._kernels)
+
+
+registry = KernelRegistry()
+
+
+def register_kernel(name: str, *, oracle: str = "torch",
+                    native: Optional[str] = None,
+                    flops_model: Optional[Callable[..., float]] = None,
+                    bytes_model: Optional[Callable[..., float]] = None,
+                    doc: str = "") -> PortableKernel:
+    """Create-or-get a PortableKernel in the global registry."""
+    if name in registry:
+        return registry.get(name)
+    return registry.register(PortableKernel(
+        name=name, oracle=oracle, native=native, flops_model=flops_model,
+        bytes_model=bytes_model, doc=doc))
+
+
+def get_kernel(name: str) -> PortableKernel:
+    return registry.get(name)
