@@ -4,23 +4,30 @@
     python3 chip_smoke.py [--seed 0]
 
 The paper's portable-kernel workflow (``examples/quickstart.py``) at the
-paper's sizes: BabelStream over 2^25 float32 elements (128 MiB an array)
-and the seven-point stencil over a 512^3 float32 volume (512 MiB).
+paper's sizes: BabelStream over 2^25 float32 elements (128 MiB an array),
+the seven-point stencil over a 512^3 float32 volume (512 MiB), miniBUDE on
+a bm1-shaped deck (938 protein atoms, 26 ligand atoms, 65536 poses) and
+the Hartree-Fock Fock build on the paper's two smallest helium systems
+(N = 128 with STO-3G, N = 64 with STO-6G: 2.17e10 primitive quartets each),
+plus the build split into four l-slabs, as a distributed caller runs it.
 
   1. build:     nvcc for every ``csrc/*.cu`` (all started together), then
                 each kernel once on its small conformance case on the card,
                 which compiles the Triton kernels and checks them;
-  2. main path: each kernel through ``get_kernel(name)`` with its default
-                backend on CUDA tensors, with every launch count set to 0
-                just before and read just after; the default must be the
-                hand-written backend and each kernel must have launched;
+  2. main path: four paths — slice 1 (BabelStream, stencil), miniBUDE,
+                Hartree-Fock, the Hartree-Fock slabs — each with every
+                launch count set to 0 just before it and read just after;
+                registry kernels go through ``get_kernel(name)`` with their
+                default backend on CUDA tensors, which must be the
+                hand-written one, and each kernel must have launched;
   3. check:     each kernel against its plain PyTorch version on the same
                 inputs at the port's ORACLE_TOL; the stencil's boundary
-                faces are zero and nothing is NaN;
+                faces are zero, the Fock matrices symmetric, the four slabs
+                sum to the full build, and nothing is NaN;
   4. timing:    CUDA-event medians of the kernel, its plain version and the
                 one PyTorch call computing the same function (where there
                 is one), beside the least time the card could take, and
-                the host's time to enqueue one call through the registry;
+                the host's time to enqueue one call;
   5. Eq. 4:     e_i = plain time / kernel time and their mean, Phi-bar.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
@@ -31,11 +38,13 @@ device, or when any phase fails, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -46,17 +55,32 @@ import repro_torch.kernels  # noqa: E402,F401  (registers the kernels)
 from repro_torch.core import Efficiency, get_kernel, phi_bar, time_call  # noqa: E402
 from repro_torch.core import conformance  # noqa: E402
 from repro_torch.kernels.babelstream.ref import START_SCALAR  # noqa: E402
+from repro_torch.kernels.hartree_fock import kernel as hf_kernel  # noqa: E402
+from repro_torch.kernels.hartree_fock import ref as hf_ref  # noqa: E402
+from repro_torch.kernels.minibude.ops import make_deck  # noqa: E402
 from repro_torch.kernels.stencil7.ref import default_coefficients  # noqa: E402
 
 STREAM_N = 1 << 25     # the paper's BabelStream size
 STENCIL_L = 512        # the paper's smaller stencil volume
-ITERS = 20             # timed calls per median
+BUDE = {"natpro": 938, "natlig": 26, "nposes": 65536}  # bm1's shape
+HF_CASES = ((128, 3), (64, 6))  # (N, ngauss): the paper's Table 4 He systems
+SLABS = 4              # l-slabs of the N = 128 build
+ITERS = 20             # timed samples per median for the sub-ms kernels
 STREAM_OPS = ("copy", "mul", "add", "triad", "dot")
-KERNELS = tuple(f"babelstream.{op}" for op in STREAM_OPS) + ("stencil7",)
+SLICE1 = tuple(f"babelstream.{op}" for op in STREAM_OPS) + ("stencil7",)
+KERNELS = SLICE1 + ("minibude.fasten", "hartree_fock.twoel")  # registry
+SLAB = "hartree_fock.twoel_slab"  # the slab wrapper, outside the registry
+RECORDS = KERNELS + (SLAB,)
+HF_TOL = conformance.ORACLE_TOL["hartree_fock.twoel"]
 
 SOURCE = {name: "src/repro_torch/kernels/babelstream/kernel.py"
-          for name in KERNELS[:5]}
-SOURCE["stencil7"] = "src/repro_torch/csrc/stencil7.cu"
+          for name in SLICE1[:5]}
+SOURCE.update({
+    "stencil7": "src/repro_torch/csrc/stencil7.cu",
+    "minibude.fasten": "src/repro_torch/csrc/minibude.cu",
+    "hartree_fock.twoel": "src/repro_torch/csrc/hartree_fock.cu",
+    SLAB: "src/repro_torch/csrc/hartree_fock.cu",
+})
 REPLACES = {
     "babelstream.copy": "src/repro/kernels/babelstream/kernel.py:99",
     "babelstream.mul": "src/repro/kernels/babelstream/kernel.py:105",
@@ -64,10 +88,14 @@ REPLACES = {
     "babelstream.triad": "src/repro/kernels/babelstream/kernel.py:119",
     "babelstream.dot": "src/repro/kernels/babelstream/kernel.py:126",
     "stencil7": "src/repro/kernels/stencil7/kernel.py:93",
+    "minibude.fasten": "src/repro/kernels/minibude/kernel.py:146",
+    "hartree_fock.twoel": "src/repro/kernels/hartree_fock/kernel.py:153",
+    SLAB: "src/repro/kernels/hartree_fock/kernel.py:180",
 }
 
 # one PyTorch call computing the same function: the yardstick, never
-# called by the port itself
+# called by the port itself; no single call computes the stencil, the BUDE
+# energies or a Fock build
 LIBRARY = {
     "babelstream.copy": torch.clone,
     "babelstream.mul": lambda c: torch.mul(c, START_SCALAR),
@@ -75,6 +103,9 @@ LIBRARY = {
     "babelstream.triad": lambda b, c: torch.add(b, c, alpha=START_SCALAR),
     "babelstream.dot": torch.dot,
     "stencil7": None,
+    "minibude.fasten": None,
+    "hartree_fock.twoel": None,
+    SLAB: None,
 }
 
 # data-sheet rates (dense, no sparsity): HBM bytes/s and float32 FLOP/s
@@ -83,6 +114,40 @@ DATASHEET = (
     ("H100 PCIe", "H100 PCIe", 2.0e12, 51e12),
     ("H100", "H100 SXM", 3.35e12, 67e12),
 )
+
+
+@dataclasses.dataclass
+class Timing:
+    """How one kernel is timed: the sub-millisecond kernels as batches of
+    calls, the long ones one call per sample and fewer samples."""
+
+    iters: int = ITERS
+    warmup: int = 2
+    calls_per_sample: Optional[int] = None  # time_call's default batch
+    enqueue_calls: int = ITERS
+
+
+TIMING = {name: Timing() for name in SLICE1}
+TIMING["minibude.fasten"] = Timing(iters=5, warmup=1, calls_per_sample=1,
+                                   enqueue_calls=3)
+TIMING["hartree_fock.twoel"] = Timing(iters=3, warmup=1, calls_per_sample=1,
+                                      enqueue_calls=3)
+TIMING[SLAB] = TIMING["hartree_fock.twoel"]
+
+
+@dataclasses.dataclass
+class Case:
+    """One call of the main path: the record it belongs to, the kernel
+    (or wrapper) and its plain version, and the inputs."""
+
+    label: str
+    record: str
+    kernel: Callable[..., torch.Tensor]
+    plain: Callable[..., torch.Tensor]
+    args: Tuple[Any, ...]
+    kwargs: Dict[str, Any]
+    shape: Tuple[int, ...]
+    flops: float
 
 
 def fail(msg: str) -> None:
@@ -96,8 +161,13 @@ def datasheet(kind: str):
     fail(f"no data-sheet rates for {kind!r}")
 
 
-def flops(name: str, args) -> float:
-    """Floating-point operations the function does on these inputs."""
+def flops(name: str, args, kwargs) -> float:
+    """Floating-point operations the function does on these inputs: the
+    registry's model where the kernel has one (Eq. 3 for miniBUDE,
+    120 N^4 G^4 for Hartree-Fock), else counted from the shapes."""
+    k = get_kernel(name)
+    if k.flops_model is not None:
+        return float(k.flops_model(*args, **kwargs))
     if name == "stencil7":
         nz, ny, nx = args[0].shape
         return 10.0 * (nz - 2) * (ny - 2) * (nx - 2)
@@ -105,31 +175,64 @@ def flops(name: str, args) -> float:
     return float(per_elem[name.split(".")[1]] * args[0].numel())
 
 
-def enqueue_ms(fn, *args) -> float:
-    """Host milliseconds to enqueue one call, averaged over ITERS calls:
-    the registry's and the wrapper's own cost per call."""
+def enqueue_ms(fn, args, kwargs, calls: int) -> float:
+    """Host milliseconds to enqueue one call, averaged over ``calls``
+    calls: the registry's and the wrapper's own cost per call."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(ITERS):
-        fn(*args)
-    host = (time.perf_counter() - t0) / ITERS * 1e3
+    for _ in range(calls):
+        fn(*args, **kwargs)
+    host = (time.perf_counter() - t0) / calls * 1e3
     torch.cuda.synchronize()
     return host
 
 
-def main_path(inputs):
-    """Every kernel once through the registry's default backend."""
+def max_err(got: torch.Tensor, want: torch.Tensor, tol, what: str) -> float:
+    """Max abs error of ``got`` against ``want``; fails outside ``tol``."""
+    rtol, atol = tol
+    if got.shape != want.shape:
+        fail(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    bad = ~(err <= atol + rtol * w.abs())
+    if bool(bad.any()):
+        fail(f"{what}: {int(bad.sum())}/{w.numel()} elements outside rtol="
+             f"{rtol} atol={atol}; max abs err "
+             f"{float(err.nan_to_num(float('inf')).max()):.3g}")
+    return float(err.max())
+
+
+def registry_case(label: str, name: str, args, kwargs, shape) -> Case:
+    """A registry kernel's call; its timing calls the two backends' own
+    functions, as ``PortableKernel.time_backend`` does."""
+    k = get_kernel(name)
+    return Case(label, name, k.backend(k.native).fn, k.backend("torch").fn,
+                args, kwargs, shape, flops(name, args, kwargs))
+
+
+def drive(phase: str, cases: List[Case], wrappers) -> Dict[str, Any]:
+    """One path of the main path: every launch count set to 0 just before,
+    the path's own counts read just after."""
+    for w in wrappers.values():
+        w.launches = 0
     outs = {}
-    for name in KERNELS:
-        k = get_kernel(name)
-        args = inputs[name]
-        chosen = k.default_backend(*args)
+    for c in cases:
+        if c.record == SLAB:
+            outs[c.label] = hf_kernel.twoel_slab(*c.args, **c.kwargs)
+            continue
+        k = get_kernel(c.record)
+        chosen = k.default_backend(*c.args, **c.kwargs)
         if chosen != k.native:
-            fail(f"{name}: default backend on CUDA tensors is {chosen!r}, "
-                 f"not the hand-written {k.native!r}")
-        outs[name] = k(*args)
+            fail(f"{c.record}: default backend on CUDA tensors is "
+                 f"{chosen!r}, not the hand-written {k.native!r}")
+        outs[c.label] = k(*c.args, **c.kwargs)
     torch.cuda.synchronize()
-    return outs
+    counts = {c.record: wrappers[c.record].launches for c in cases}
+    print(f"main path [{phase}] launches: {counts}")
+    for name, count in counts.items():
+        if count < 1:
+            fail(f"{name}: the main path never launched its kernel")
+    return outs, counts
 
 
 def main() -> None:
@@ -152,18 +255,26 @@ def main() -> None:
     print(f"bound rates: {label} data sheet, {bw / 1e12} TB/s HBM, "
           f"{peak / 1e12} TFLOP/s float32")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t_start = time.perf_counter()
 
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
     libs = _build.build()
     for name in libs:
         ptxas = [ln.strip() for ln in _build.build_log(name).splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
         print(f"built {name}: {'; '.join(ptxas)}")
     for name in KERNELS:
         k = get_kernel(name)
         err = conformance.check_backend(name, k.native, device=dev)
         print(f"conformance case {name}[{k.native}] max abs err {err:.3g}")
+    (pos8, dens8), _ = conformance.case_tensors("hartree_fock.twoel", dev)
+    basis3 = hf_ref.sto_basis(3, device=dev)
+    err = max_err(hf_kernel.twoel_slab(hf_kernel.pad4(pos8), dens8, basis3,
+                                       2, 4),
+                  hf_ref.fock_build_slab(pos8, dens8, basis3, 2, 4), HF_TOL,
+                  "conformance case hartree_fock.twoel_slab")
+    print(f"conformance case {SLAB}[cuda] l in [2, 6) max abs err {err:.3g}")
     print(f"build + small cases: {time.perf_counter() - t0:.1f} s")
 
     # ---- inputs: made on the card from the seed ------------------------
@@ -172,83 +283,156 @@ def main() -> None:
                for _ in range(3))
     u = torch.randn(STENCIL_L, STENCIL_L, STENCIL_L, generator=g, device=dev)
     coeffs = default_coefficients()
-    inputs = {
-        "babelstream.copy": (a,),
-        "babelstream.mul": (c,),
-        "babelstream.add": (a, b),
-        "babelstream.triad": (b, c),
-        "babelstream.dot": (a, b),
-        "stencil7": (u, *coeffs),
-    }
+    stream_args = {"copy": (a,), "mul": (c,), "add": (a, b),
+                   "triad": (b, c), "dot": (a, b)}
+    slice1 = [registry_case(f"babelstream.{op}", f"babelstream.{op}", xs, {},
+                            () if op == "dot" else tuple(xs[0].shape))
+              for op, xs in stream_args.items()]
+    slice1.append(registry_case("stencil7", "stencil7", (u, *coeffs), {},
+                                tuple(u.shape)))
+    deck = make_deck(**BUDE, seed=args.seed, device=dev)
+    bude = [registry_case("minibude.fasten", "minibude.fasten", deck, {},
+                          (BUDE["nposes"],))]
+    hf, hf_inputs = [], {}
+    for n, ngauss in HF_CASES:
+        pos = hf_ref.helium_lattice(n, device=dev)
+        dens = hf_ref.initial_density(n, device=dev)
+        hf_inputs[n, ngauss] = (pos, dens)
+        hf.append(registry_case(f"hartree_fock.twoel N={n} ngauss={ngauss}",
+                                "hartree_fock.twoel", (pos, dens),
+                                {"ngauss": ngauss}, (n, n)))
+    # the slabs of the N = 128 build, as one rank of a distributed build
+    # calls the wrapper: (positions4, density, basis, l0, nl)
+    n, ngauss = HF_CASES[0]
+    pos, dens = hf_inputs[n, ngauss]
+    pos4, basis = hf_kernel.pad4(pos), hf_ref.sto_basis(ngauss, device=dev)
+    nl = n // SLABS
+    slab_flops = 120.0 * float(n) ** 3 * nl * ngauss ** 4
+    slabs = [Case(f"{SLAB} l in [{l0}, {l0 + nl})", SLAB,
+                  hf_kernel.twoel_slab,
+                  lambda p4, d, bs, l0_, nl_: hf_ref.fock_build_slab(
+                      p4[:, :3], d, bs, l0_, nl_),
+                  (pos4, dens, basis, l0, nl), {}, (n, n), slab_flops)
+             for l0 in range(0, n, nl)]
     wrappers = {name: get_kernel(name).backend(get_kernel(name).native).fn
                 for name in KERNELS}
+    wrappers["hartree_fock.twoel"] = hf_kernel.twoel
+    wrappers[SLAB] = hf_kernel.twoel_slab
 
     # ---- 2. main path, with the launch counts --------------------------
-    for w in wrappers.values():
-        w.launches = 0
-    outs = main_path(inputs)
-    launches = {name: wrappers[name].launches for name in KERNELS}
-    print(f"main path launches: {launches}")
-    for name, count in launches.items():
-        if count < 1:
-            fail(f"{name}: the main path never launched its kernel")
+    outs, launches = {}, {}
+    for phase, cases in (("slice 1", slice1), ("miniBUDE", bude),
+                         ("Hartree-Fock", hf), ("Hartree-Fock slabs", slabs)):
+        o, counts = drive(phase, cases, wrappers)
+        outs.update(o)
+        launches.update(counts)
 
     # ---- 3. check ------------------------------------------------------
     f = outs["stencil7"]
     faces = (f[0], f[-1], f[:, 0], f[:, -1], f[:, :, 0], f[:, :, -1])
     if any(bool(face.ne(0).any()) for face in faces):
         fail("stencil7: a boundary face is not zero")
-    for name, out in outs.items():
+    cases = slice1 + bude + hf + slabs
+    for c in cases:
+        out = outs[c.label]
         if not bool(torch.isfinite(out).all()):
-            fail(f"{name}: non-finite values in the main path's output")
-    expect_shape = {name: inputs[name][0].shape for name in KERNELS}
-    expect_shape["babelstream.dot"] = torch.Size([])
-    for name, out in outs.items():
-        if out.shape != expect_shape[name] or out.dtype != torch.float32:
-            fail(f"{name}: output {out.dtype}{tuple(out.shape)}")
-    max_err = {}
-    for name in KERNELS:
-        k = get_kernel(name)
-        max_err[name] = k.validate(*inputs[name], backend=k.native)
-        print(f"{name}[{k.native}] vs torch at ORACLE_TOL "
-              f"{conformance.ORACLE_TOL[name]}: max abs err "
-              f"{max_err[name]:.3g}")
+            fail(f"{c.label}: non-finite values in the main path's output")
+        if tuple(out.shape) != c.shape or out.dtype != torch.float32:
+            fail(f"{c.label}: output {out.dtype}{tuple(out.shape)}, "
+                 f"expected float32{c.shape}")
+    for c in hf:
+        err = max_err(outs[c.label], outs[c.label].T, HF_TOL,
+                      f"{c.label}: F against its transpose")
+        print(f"{c.label}: symmetric, max |F - F^T| {err:.3g}")
+    errs: Dict[str, float] = {}
+    for c in slice1 + bude + hf:
+        k = get_kernel(c.record)
+        e = k.validate(*c.args, backend=k.native, **c.kwargs)
+        errs[c.label] = e
+        print(f"{c.label}[{k.native}] vs torch at ORACLE_TOL "
+              f"{conformance.ORACLE_TOL[c.record]}: max abs err {e:.3g}")
+    # the slabs: each against its plain slab (the integrals made once),
+    # their sum against the full kernel's build
+    full = outs[hf[0].label]
+    eri = hf_ref.eri_tensor(pos, basis)
+    for c in slabs:
+        l0 = c.args[3]
+        want = hf_ref.fock_from_eri(eri, hf_ref.slab_density(dens, l0, nl))
+        errs[c.label] = max_err(outs[c.label], want, HF_TOL, c.label)
+        print(f"{c.label}[cuda] vs torch at ORACLE_TOL {HF_TOL}: max abs "
+              f"err {errs[c.label]:.3g}")
+    del eri
+    total = sum(outs[c.label] for c in slabs)
+    err = max_err(total, full, HF_TOL, f"sum of the {SLABS} slabs")
+    print(f"sum of the {SLABS} slabs vs the full N={n} build at ORACLE_TOL "
+          f"{HF_TOL}: max abs err {err:.3g}")
 
     # ---- 4. timing -----------------------------------------------------
-    records, terms = [], []
-    for name in KERNELS:
-        k = get_kernel(name)
-        xs = inputs[name]
-        ms = k.time_backend(*xs, backend=k.native, iters=ITERS) * 1e3
-        plain_ms = k.time_backend(*xs, backend="torch", iters=ITERS) * 1e3
-        lib = LIBRARY[name]
-        library_ms = (time_call(lib, *xs, iters=ITERS) * 1e3
+    measured: Dict[str, Dict[str, Any]] = {}
+    # one slab stands for the slab record: they are the same work
+    for c in slice1 + bude + hf + slabs[:1]:
+        tm = TIMING[c.record]
+        opts = dict(iters=tm.iters, warmup=tm.warmup,
+                    calls_per_sample=tm.calls_per_sample)
+        ms = time_call(c.kernel, *c.args, **opts, **c.kwargs) * 1e3
+        plain_ms = time_call(c.plain, *c.args, **opts, **c.kwargs) * 1e3
+        lib = LIBRARY[c.record]
+        library_ms = (time_call(lib, *c.args, **opts) * 1e3
                       if lib is not None else None)
-        host_ms = enqueue_ms(k, *xs)
-        moved = sum(x.nbytes for x in xs if isinstance(x, torch.Tensor)) \
-            + outs[name].nbytes
-        t_bytes, t_ops = moved / bw * 1e3, flops(name, xs) / peak * 1e3
+        # through the registry, as a user calls it
+        call = c.kernel if c.record == SLAB else get_kernel(c.record)
+        host_ms = enqueue_ms(call, c.args, c.kwargs, tm.enqueue_calls)
+        moved = sum(x.nbytes for x in c.args if isinstance(x, torch.Tensor))
+        moved += outs[c.label].nbytes
+        if c.record == SLAB:
+            moved += basis.exponents.nbytes + basis.coefficients.nbytes
+        t_bytes, t_ops = moved / bw * 1e3, c.flops / peak * 1e3
         bound_ms = max(t_bytes, t_ops)
-        fom = k.figure_of_merit(ms / 1e3, *xs)["gbytes_per_s"]
+        gflops = c.flops / ms / 1e6
+        if c.record in ("minibude.fasten",):
+            fom = f"{gflops:.0f} GFLOP/s by Eq. 3"
+        elif c.record.startswith("hartree_fock"):
+            fom = f"wall clock, {gflops:.0f} GFLOP/s by 120 N^4 G^4"
+        else:
+            gbs = get_kernel(c.record).figure_of_merit(
+                ms / 1e3, *c.args)["gbytes_per_s"]
+            fom = (f"{gbs:.0f} GB/s by Eq. "
+                   f"{1 if c.record == 'stencil7' else 2}")
         lib_txt = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        print(f"{name}: {ms:.4f} ms ({fom:.0f} GB/s by Eq. "
-              f"{1 if name == 'stencil7' else 2}, {bound_ms / ms:.1%} of the "
+        print(f"{c.label}: {ms:.4f} ms ({fom}, {bound_ms / ms:.1%} of the "
               f"{bound_ms:.4f} ms bound), plain {plain_ms:.4f} ms, library "
               f"{lib_txt}, host enqueue {host_ms:.4f} ms a call")
-        records.append({
-            "name": name, "route": k.native, "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
+        measured[c.label] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-        })
-        terms.append(Efficiency(kind, name, 1.0 / ms, 1.0 / plain_ms))
+            "library_ms": library_ms, "gflops_per_s": gflops,
+            "max_abs_err": errs[c.label]}
+
+    records, terms = [], []
+    for name in RECORDS:
+        mine = [c for c in cases if c.record == name]
+        timed = [c for c in mine if c.label in measured]
+        first = measured[timed[0].label]
+        rec = {"name": name, "route": "cuda" if name == SLAB
+               else get_kernel(name).native,
+               "source": SOURCE[name], "replaces": REPLACES[name],
+               "launches": launches[name],
+               "max_abs_err": max(errs[c.label] for c in mine)}
+        rec.update({key: first[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        if len(timed) > 1:
+            # every timed shape of a record with more than one
+            rec["cases"] = [dict(case=c.label, **measured[c.label])
+                            for c in timed]
+        records.append(rec)
+        terms.append(Efficiency(kind, name, 1.0 / rec["ms"],
+                                1.0 / rec["plain_ms"]))
 
     # ---- 5. Eq. 4 ------------------------------------------------------
     for t in terms:
         print(f"Eq.4 e_i {t.case}: {t.e:.3f} (torch baseline)")
     print(f"Eq.4 Phi-bar over {len(terms)} kernels: {phi_bar(terms):.3f}")
+    print(f"whole run: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,17 @@ def _stream_case(nargs: int) -> Case:
                  for _ in range(nargs)), {}
 
 
+def _minibude_case() -> Case:
+    from repro_torch.kernels.minibude import ref as mb_ref
+    return mb_ref.deck_arrays(natpro=16, natlig=4, nposes=512, seed=0), {}
+
+
+def _hf_case() -> Case:
+    from repro_torch.kernels.hartree_fock import ref as hf_ref
+    return (hf_ref.helium_lattice(8, device="cpu").numpy(),
+            hf_ref.initial_density(8, device="cpu").numpy()), {}
+
+
 CASES: Dict[str, Callable[[], Case]] = {
     "stencil7": _stencil_case,
     "babelstream.copy": lambda: _stream_case(1),
@@ -49,6 +60,8 @@ CASES: Dict[str, Callable[[], Case]] = {
     "babelstream.add": lambda: _stream_case(2),
     "babelstream.triad": lambda: _stream_case(2),
     "babelstream.dot": lambda: _stream_case(2),
+    "minibude.fasten": _minibude_case,
+    "hartree_fock.twoel": _hf_case,
 }
 
 #: per-kernel tolerance vs the oracle — the reference's rows
@@ -59,6 +72,8 @@ ORACLE_TOL: Dict[str, Tolerance] = {
     "babelstream.add": (1e-6, 1e-6),
     "babelstream.triad": (1e-6, 1e-6),
     "babelstream.dot": (1e-4, 1e-3),
+    "minibude.fasten": (2e-4, 2e-3),
+    "hartree_fock.twoel": (1e-4, 1e-4),
 }
 
 

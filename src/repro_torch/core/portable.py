@@ -302,7 +302,9 @@ class PortableKernel:
 
     # ---- measurement ---------------------------------------------------
     def time_backend(self, *args: Any, backend: str, iters: int = 10,
-                     warmup: int = 2, **kwargs: Any) -> float:
+                     warmup: int = 2,
+                     calls_per_sample: Optional[int] = None,
+                     **kwargs: Any) -> float:
         """Median seconds per call after ``warmup`` calls (paper §3).
 
         CUDA tensors are timed with CUDA events around batches of calls;
@@ -310,7 +312,8 @@ class PortableKernel:
         ``time_call``.
         """
         fn = self._require_available(backend)
-        return time_call(fn, *args, iters=iters, warmup=warmup, **kwargs)
+        return time_call(fn, *args, iters=iters, warmup=warmup,
+                         calls_per_sample=calls_per_sample, **kwargs)
 
     def figure_of_merit(self, elapsed_s: float, *args: Any,
                         **kwargs: Any) -> Dict[str, float]:
@@ -328,19 +331,26 @@ CALLS_PER_SAMPLE = 10
 
 
 def time_call(fn: Callable[..., Any], *args: Any, iters: int = 10,
-              warmup: int = 2, **kwargs: Any) -> float:
+              warmup: int = 2, calls_per_sample: Optional[int] = None,
+              **kwargs: Any) -> float:
     """Median seconds per call of ``fn(*args, **kwargs)`` over ``iters``
     samples.
 
-    With a CUDA tensor among the arguments a sample is ``CALLS_PER_SAMPLE``
-    back-to-back calls between two CUDA events on the current stream, and
-    the device is synchronised once at the end.  The host enqueues the next
-    call while the device runs the last, so the figure is device time per
-    call — unless the host cannot keep up, and then it is the host's rate,
-    which is what a caller gets.  (Events around every single call would
-    add the host's enqueue jitter whenever it is near the kernel's time.)
+    With a CUDA tensor among the arguments a sample is ``calls_per_sample``
+    (default ``CALLS_PER_SAMPLE``) back-to-back calls between two CUDA
+    events on the current stream, and the device is synchronised once at
+    the end.  The host enqueues the next call while the device runs the
+    last, so the figure is device time per call — unless the host cannot
+    keep up, and then it is the host's rate, which is what a caller gets.
+    (Events around every single call would add the host's enqueue jitter
+    whenever it is near the kernel's time; a call of a millisecond or more
+    dwarfs that jitter, and one call per sample keeps its timing short.)
     Otherwise the host clock times each call.
     """
+    per_sample = (CALLS_PER_SAMPLE if calls_per_sample is None
+                  else calls_per_sample)
+    if per_sample < 1:
+        raise ValueError(f"calls_per_sample must be >= 1, got {per_sample}")
     device = _cuda_device(args, kwargs)
     for _ in range(warmup):
         fn(*args, **kwargs)
@@ -357,11 +367,11 @@ def time_call(fn: Callable[..., Any], *args: Any, iters: int = 10,
                   torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
         for start, end in marks:
             start.record()
-            for _ in range(CALLS_PER_SAMPLE):
+            for _ in range(per_sample):
                 fn(*args, **kwargs)
             end.record()
         torch.cuda.synchronize()
-    ms = np.median([s.elapsed_time(e) for s, e in marks]) / CALLS_PER_SAMPLE
+    ms = np.median([s.elapsed_time(e) for s, e in marks]) / per_sample
     return float(ms) / 1e3
 
 

@@ -17,6 +17,8 @@ import torch
 from repro.core import metrics as jax_metrics
 from repro.core.portable import get_kernel as jax_get_kernel
 import repro.kernels.babelstream.ops  # noqa: F401  (registers the reference)
+import repro.kernels.hartree_fock.ops  # noqa: F401
+import repro.kernels.minibude.ops  # noqa: F401
 import repro.kernels.stencil7.ops  # noqa: F401
 import repro_torch.kernels  # noqa: F401
 from repro_torch.core import (BackendUnavailableError, Efficiency, get_kernel,
@@ -24,7 +26,18 @@ from repro_torch.core import (BackendUnavailableError, Efficiency, get_kernel,
 from repro_torch.core import conformance
 
 PORTED = ("babelstream.add", "babelstream.copy", "babelstream.dot",
-          "babelstream.mul", "babelstream.triad", "stencil7")
+          "babelstream.mul", "babelstream.triad", "hartree_fock.twoel",
+          "minibude.fasten", "stencil7")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The inputs are tiny: one torch thread per test worker, so parallel
+    workers' thread pools do not contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_quickstart_path_on_cpu():

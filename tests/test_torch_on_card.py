@@ -19,13 +19,21 @@ import repro_torch.kernels  # noqa: F401
 from repro_torch.core import Efficiency, conformance, get_kernel, phi_bar
 from repro_torch.kernels.babelstream import kernel as stream_kernel
 from repro_torch.kernels.babelstream import ref as stream_ref
+from repro_torch.kernels.hartree_fock import kernel as hf_kernel
+from repro_torch.kernels.hartree_fock import ref as hf_ref
+from repro_torch.kernels.minibude import kernel as bude_kernel
+from repro_torch.kernels.minibude import ops as bude_ops
+from repro_torch.kernels.minibude import ref as bude_ref
 from repro_torch.kernels.stencil7 import kernel as stencil_kernel
 from repro_torch.kernels.stencil7 import ref as stencil_ref
 
 OPS = ("copy", "mul", "add", "triad", "dot")
 PORTED = ("babelstream.add", "babelstream.copy", "babelstream.dot",
-          "babelstream.mul", "babelstream.triad", "stencil7")
+          "babelstream.mul", "babelstream.triad", "hartree_fock.twoel",
+          "minibude.fasten", "stencil7")
 STENCIL_RTOL, STENCIL_ATOL = conformance.ORACLE_TOL["stencil7"]
+BUDE_RTOL, BUDE_ATOL = conformance.ORACLE_TOL["minibude.fasten"]
+HF_RTOL, HF_ATOL = conformance.ORACLE_TOL["hartree_fock.twoel"]
 
 pytestmark = pytest.mark.gpu
 
@@ -100,10 +108,91 @@ def test_stencil_kernel_rejects_what_it_cannot_run(cuda):
         lap(torch.zeros(4, 4, 4, device=cuda), block_x=48)
 
 
+def test_minibude_kernel_matches_plain(cuda):
+    space = get_kernel("minibude.fasten").tunable_space("cuda")
+    # ragged pose tails: no count below is a multiple of a block's poses
+    for natpro, natlig, nposes in ((16, 4, 1), (64, 8, 1000),
+                                   (96, 16, 4099)):
+        deck = bude_ops.make_deck(natpro, natlig, nposes, seed=3,
+                                  device=cuda)
+        want = bude_ref.fasten(*deck)
+        for p in space.points():
+            before = bude_kernel.fasten.launches
+            got = bude_kernel.fasten(*deck, **p)
+            torch.cuda.synchronize()
+            assert bude_kernel.fasten.launches == before + 1
+            assert got.shape == (nposes,)
+            torch.testing.assert_close(got, want, rtol=BUDE_RTOL,
+                                       atol=BUDE_ATOL)
+
+
+def test_hartree_fock_kernel_matches_plain(cuda):
+    space = get_kernel("hartree_fock.twoel").tunable_space("cuda")
+    for n, ngauss in ((8, 3), (12, 6), (16, 3)):
+        pos = hf_ref.helium_lattice(n, device=cuda)
+        dens = hf_ref.initial_density(n, device=cuda)
+        basis = hf_ref.sto_basis(ngauss, device=cuda)
+        pos4 = hf_kernel.pad4(pos)
+        want = hf_ref.fock_build(pos, dens, basis)
+        for p in space.points():
+            before = hf_kernel.twoel.launches
+            got = hf_kernel.twoel(pos4, dens, basis, **p)
+            torch.cuda.synchronize()
+            assert hf_kernel.twoel.launches == before + 1
+            torch.testing.assert_close(got, want, rtol=HF_RTOL, atol=HF_ATOL)
+        # a cover by uneven slabs sums to the full build
+        total = torch.zeros_like(want)
+        for l0, nl in ((0, 1), (1, n // 2 - 1), (n // 2, n // 2)):
+            before = hf_kernel.twoel_slab.launches
+            part = hf_kernel.twoel_slab(pos4, dens, basis, l0, nl)
+            assert hf_kernel.twoel_slab.launches == before + 1
+            torch.testing.assert_close(
+                part, hf_ref.fock_build_slab(pos, dens, basis, l0, nl),
+                rtol=HF_RTOL, atol=HF_ATOL)
+            total += part
+        torch.testing.assert_close(total, want, rtol=HF_RTOL, atol=HF_ATOL)
+
+
+def test_hartree_fock_kernel_is_deterministic(cuda):
+    pos = hf_ref.helium_lattice(24, device=cuda)
+    dens = hf_ref.initial_density(24, device=cuda)
+    basis = hf_ref.sto_basis(3, device=cuda)
+    for p in get_kernel("hartree_fock.twoel").tunable_space("cuda").points():
+        first = hf_kernel.twoel(hf_kernel.pad4(pos), dens, basis, **p)
+        for _ in range(5):
+            again = hf_kernel.twoel(hf_kernel.pad4(pos), dens, basis, **p)
+            assert torch.equal(first, again)
+
+
+def test_new_kernels_reject_what_they_cannot_run(cuda):
+    deck = bude_ops.make_deck(16, 4, 64, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        bude_kernel.fasten(*(t.double() for t in deck))
+    poses_t = deck[4].T.contiguous().T  # (6, P) with transposed strides
+    with pytest.raises(ValueError, match="contiguous"):
+        bude_kernel.fasten(*deck[:4], poses_t)
+    with pytest.raises(ValueError, match="launch shape"):
+        bude_kernel.fasten(*deck, ppwi=3)
+    pos4 = hf_kernel.pad4(hf_ref.helium_lattice(8, device=cuda))
+    dens = hf_ref.initial_density(8, device=cuda)
+    basis = hf_ref.sto_basis(3, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        hf_kernel.twoel(pos4.double(), dens.double(), basis)
+    with pytest.raises(ValueError, match="contiguous"):
+        hf_kernel.twoel(pos4, dens.T, basis)
+    with pytest.raises(ValueError, match="launch shape"):
+        hf_kernel.twoel(pos4, dens, basis, team=48)
+    with pytest.raises(ValueError, match="slab"):
+        hf_kernel.twoel_slab(pos4, dens, basis, 6, 4)
+
+
 @pytest.mark.parametrize("name", PORTED)
 def test_hand_written_conformance_cell(cuda, name):
     k = get_kernel(name)
-    wrapper = k.backend(k.native).fn
+    # the registry's Hartree-Fock backend pads the positions and calls the
+    # counting wrapper
+    wrapper = {"hartree_fock.twoel": hf_kernel.twoel}.get(
+        name, k.backend(k.native).fn)
     args, _ = conformance.case_tensors(name, cuda)
     assert k.default_backend(*args) == k.native
     before = wrapper.launches

@@ -30,7 +30,8 @@ from repro_torch.kernels.stencil7 import kernel as stencil_kernel
 
 REPO = Path(__file__).resolve().parents[1]
 PORTED = ("babelstream.copy", "babelstream.mul", "babelstream.add",
-          "babelstream.triad", "babelstream.dot", "stencil7")
+          "babelstream.triad", "babelstream.dot", "stencil7",
+          "minibude.fasten", "hartree_fock.twoel")
 
 
 # ---- metrics and tables equal the reference's ----------------------------
@@ -249,7 +250,7 @@ def test_stencil_wrapper_rejects_what_it_cannot_run():
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(_build, "nvcc_path", lambda: None)
-    assert _build.sources() == ["stencil7"]
+    assert _build.sources() == ["hartree_fock", "minibude", "stencil7"]
     with pytest.raises(_build.BuildError, match="nvcc not found"):
         _build.build()
     assert not (tmp_path / "kernels").exists()
@@ -275,10 +276,14 @@ def test_build_keys_libraries_by_source_and_flags(monkeypatch, tmp_path):
     fake.chmod(0o755)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
-    lib = _build.build()["stencil7"]
+    libs = _build.build()
+    lib = libs["stencil7"]
     assert lib.exists() and lib.parent == tmp_path / "kernels"
     assert "24 registers" in _build.build_log("stencil7")
-    assert [p.name for p in lib.parent.glob("*.so")] == [lib.name]
+    # one library per source, each under its own name
+    assert sorted(p.name for p in lib.parent.glob("*.so")) == \
+        sorted(p.name for p in libs.values())
+    assert sorted(libs) == _build.sources()
     # a second build finds the library and runs nothing
     monkeypatch.setattr(_build, "nvcc_path", lambda: None)
     assert _build.build()["stencil7"] == lib
@@ -316,11 +321,16 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.core.conformance, repro_torch._build\n"
+        "import repro_torch.kernels.minibude.kernel\n"
+        "import repro_torch.kernels.hartree_fock.kernel\n"
+        "from repro_torch.core import conformance\n"
+        "for name in sorted(conformance.CASES):\n"
+        "    conformance.case_tensors(name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(repro_torch.core.registry.names()) == 6\n"
+        "assert len(repro_torch.core.registry.names()) == 8\n"
         "print('isolated')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(REPO / "src"), str(REPO)])
