@@ -7,6 +7,7 @@ from repro_torch.core.portable import (  # noqa: F401
     PortableKernel,
     TunableSpace,
     get_kernel,
+    max_abs_err,
     register_kernel,
     registry,
     time_call,

@@ -14,7 +14,10 @@ The port of ``repro.core.conformance`` for the kernels ported so far:
     ``BackendUnavailableError`` when this host cannot run the pair.
 
 Importing this module registers nothing: callers import
-``repro_torch.kernels`` (or one family's ``ops``) first.
+``repro_torch.kernels`` (or one family's ``ops``) first.  The miniBUDE and
+Hartree-Fock cases import their family's ``ref`` inside the case, as the
+reference's cases do: the deck, the lattice and the density are that
+family's own functions, and the table stays in one place.
 """
 
 from __future__ import annotations

@@ -281,30 +281,13 @@ class PortableKernel:
             raise AssertionError(
                 f"{self.name}[{backend}] returned {len(got)} outputs, "
                 f"oracle {len(want)}")
-        worst = 0.0
-        for w, g in zip(want, got):
-            if w.shape != g.shape:
-                raise AssertionError(
-                    f"{self.name}[{backend}] shape {tuple(g.shape)} != "
-                    f"oracle {tuple(w.shape)}")
-            w, g = w.double(), g.double()
-            err = (g - w).abs()
-            bad = ~(err <= atol + rtol * w.abs())
-            if bool(bad.any()):
-                raise AssertionError(
-                    f"{self.name}[{backend}] vs {self.oracle}: "
-                    f"{int(bad.sum())}/{w.numel()} elements outside "
-                    f"rtol={rtol} atol={atol}; max abs err "
-                    f"{float(err.nan_to_num(float('inf')).max())}")
-            if err.numel():
-                worst = max(worst, float(err.max()))
-        return worst
+        return max((max_abs_err(g, w, rtol, atol,
+                                f"{self.name}[{backend}] vs {self.oracle}")
+                    for w, g in zip(want, got)), default=0.0)
 
     # ---- measurement ---------------------------------------------------
     def time_backend(self, *args: Any, backend: str, iters: int = 10,
-                     warmup: int = 2,
-                     calls_per_sample: Optional[int] = None,
-                     **kwargs: Any) -> float:
+                     warmup: int = 2, **kwargs: Any) -> float:
         """Median seconds per call after ``warmup`` calls (paper §3).
 
         CUDA tensors are timed with CUDA events around batches of calls;
@@ -312,8 +295,7 @@ class PortableKernel:
         ``time_call``.
         """
         fn = self._require_available(backend)
-        return time_call(fn, *args, iters=iters, warmup=warmup,
-                         calls_per_sample=calls_per_sample, **kwargs)
+        return time_call(fn, *args, iters=iters, warmup=warmup, **kwargs)
 
     def figure_of_merit(self, elapsed_s: float, *args: Any,
                         **kwargs: Any) -> Dict[str, float]:
@@ -326,35 +308,54 @@ class PortableKernel:
         return out
 
 
+def max_abs_err(got: torch.Tensor, want: torch.Tensor, rtol: float,
+                atol: float, what: str) -> float:
+    """Max abs error of ``got`` against ``want``, compared in float64 on
+    their own device; ``AssertionError`` when the shapes differ or any
+    element (a NaN included) lies outside ``atol + rtol * |want|``."""
+    if got.shape != want.shape:
+        raise AssertionError(
+            f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    bad = ~(err <= atol + rtol * w.abs())
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{what}: {int(bad.sum())}/{w.numel()} elements outside "
+            f"rtol={rtol} atol={atol}; max abs err "
+            f"{float(err.nan_to_num(float('inf')).max())}")
+    return float(err.max()) if err.numel() else 0.0
+
+
 #: back-to-back calls between the two CUDA events of one timing sample
 CALLS_PER_SAMPLE = 10
+#: a call of this many seconds or more is timed one call a sample ...
+LONG_CALL_S = 1e-3
+#: ... over at most this many samples
+LONG_CALL_SAMPLES = 5
 
 
 def time_call(fn: Callable[..., Any], *args: Any, iters: int = 10,
-              warmup: int = 2, calls_per_sample: Optional[int] = None,
-              **kwargs: Any) -> float:
+              warmup: int = 2, **kwargs: Any) -> float:
     """Median seconds per call of ``fn(*args, **kwargs)`` over ``iters``
     samples.
 
-    With a CUDA tensor among the arguments a sample is ``calls_per_sample``
-    (default ``CALLS_PER_SAMPLE``) back-to-back calls between two CUDA
-    events on the current stream, and the device is synchronised once at
-    the end.  The host enqueues the next call while the device runs the
-    last, so the figure is device time per call — unless the host cannot
-    keep up, and then it is the host's rate, which is what a caller gets.
-    (Events around every single call would add the host's enqueue jitter
-    whenever it is near the kernel's time; a call of a millisecond or more
-    dwarfs that jitter, and one call per sample keeps its timing short.)
-    Otherwise the host clock times each call.
+    With a CUDA tensor among the arguments a sample is ``CALLS_PER_SAMPLE``
+    back-to-back calls between two CUDA events on the current stream, and
+    the device is synchronised once at the end.  The host enqueues the next
+    call while the device runs the last, so the figure is device time per
+    call — unless the host cannot keep up, and then it is the host's rate,
+    which is what a caller gets.  (Events around every single call would add
+    the host's enqueue jitter whenever it is near the kernel's time.)  The
+    last warm-up call is timed on the host clock: when it takes
+    ``LONG_CALL_S`` or more, that jitter is noise, and a sample is one call
+    and there are at most ``LONG_CALL_SAMPLES`` of them.  With no CUDA
+    tensor the host clock times each call.
     """
-    per_sample = (CALLS_PER_SAMPLE if calls_per_sample is None
-                  else calls_per_sample)
-    if per_sample < 1:
-        raise ValueError(f"calls_per_sample must be >= 1, got {per_sample}")
     device = _cuda_device(args, kwargs)
-    for _ in range(warmup):
-        fn(*args, **kwargs)
     if device is None:
+        for _ in range(warmup):
+            fn(*args, **kwargs)
         times = []
         for _ in range(iters):
             t0 = time.perf_counter()
@@ -362,7 +363,16 @@ def time_call(fn: Callable[..., Any], *args: Any, iters: int = 10,
             times.append(time.perf_counter() - t0)
         return float(np.median(times))
     with torch.cuda.device(device):
-        torch.cuda.synchronize()
+        last = 0.0
+        for _ in range(warmup):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            last = time.perf_counter() - t0
+        per_sample = 1 if last >= LONG_CALL_S else CALLS_PER_SAMPLE
+        if per_sample == 1:
+            iters = min(iters, LONG_CALL_SAMPLES)
         marks = [(torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
         for start, end in marks:

@@ -9,6 +9,7 @@ density, and the STO-nG basis size (3 or 6).
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
@@ -39,6 +40,27 @@ def fock_cuda(positions, density, ngauss=3, *, team=K.TEAM, block=K.BLOCK):
 def _flops_model(positions, density, ngauss=3, **kw):
     # ~60 flops per primitive quartet (J + K tiles), x2 tiles
     return 120.0 * hartree_fock_quartets(positions.shape[0], ngauss)
+
+
+def unique_integrals(natoms: int, nl: Optional[int] = None) -> int:
+    """Distinct (ij|kl) under the integrals' 8-fold symmetry that the build
+    over the ``l``s of a slab of ``nl`` (every ``l`` by default) needs:
+    those with an index in the slab, as the symmetry moves any index into
+    ``l``'s place."""
+    def distinct(m: int) -> int:
+        pairs = m * (m + 1) // 2
+        return pairs * (pairs + 1) // 2
+    return distinct(natoms) - distinct(natoms - (natoms if nl is None else nl))
+
+
+def least_flops(natoms: int, ngauss: int, nl: Optional[int] = None) -> float:
+    """The fewest flops the build (or its slab) needs: every distinct
+    integral once, 60 flops for each of its G^4 primitive integrals (the
+    reference's 120 a primitive quartet counts two integrals, J's and K's)
+    and 12 for its six Fock updates (two in J, four in K, a multiply-add
+    each).  The gather form computes 2 N^4 G^4 primitive integrals, about
+    16 times as many for a whole build."""
+    return float(unique_integrals(natoms, nl)) * (60.0 * ngauss ** 4 + 12.0)
 
 
 _k = register_kernel("hartree_fock.twoel", native="cuda",

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -95,27 +95,32 @@ def _pair_tables(positions: torch.Tensor, basis: Basis):
     return p, P, Kab
 
 
-def eri_tensor(positions: torch.Tensor, basis: Basis) -> torch.Tensor:
-    """All (ij|kl) integrals: (N, N, N, N) — N^4 floats, so moderate N."""
+def eri_tensor(positions: torch.Tensor, basis: Basis, l0: int = 0,
+               nl: Optional[int] = None) -> torch.Tensor:
+    """The (ij|kl) integrals with ``l`` in ``[l0, l0 + nl)`` (every ``l``
+    by default): (N, N, N, nl) — N^3 nl floats, so moderate N."""
     N = positions.shape[0]
+    nl = N - l0 if nl is None else nl
     G2 = basis.ngauss ** 2
     p, P, Kab = _pair_tables(positions, basis)
-    eri = torch.zeros((N, N, N, N), dtype=positions.dtype,
+    Pkl, Kkl = P[:, :, l0:l0 + nl], Kab[:, :, l0:l0 + nl]
+    eri = torch.zeros((N, N, N, nl), dtype=positions.dtype,
                       device=positions.device)
     for ab in range(G2 * G2):
         a, b = ab // G2, ab % G2
         pa, qb = p[a], p[b]
         pq_d2 = torch.sum((P[a][:, :, None, None, :]
-                           - P[b][None, None, :, :, :]) ** 2, -1)
+                           - Pkl[b][None, None, :, :, :]) ** 2, -1)
         t = (pa * qb / (pa + qb)) * pq_d2
         pref = TWO_PI_POW_2_5 / (pa * qb * torch.sqrt(pa + qb))
         eri = eri + (pref * boys_f0(t)
-                     * Kab[a][:, :, None, None] * Kab[b][None, None, :, :])
+                     * Kab[a][:, :, None, None] * Kkl[b][None, None, :, :])
     return eri
 
 
 def fock_from_eri(eri: torch.Tensor, density: torch.Tensor) -> torch.Tensor:
-    """F[i,j] = sum_kl D[k,l] (2 (ij|kl) - (ik|jl)) from the integrals."""
+    """F[i,j] = sum_kl D[k,l] (2 (ij|kl) - (ik|jl)) from the integrals;
+    ``eri`` and ``density`` may both hold only a slab of the ``l``s."""
     j_term = 2.0 * torch.einsum("ijkl,kl->ij", eri, density)
     k_term = torch.einsum("ikjl,kl->ij", eri, density)
     return j_term - k_term
@@ -127,23 +132,15 @@ def fock_build(positions: torch.Tensor, density: torch.Tensor,
     return fock_from_eri(eri_tensor(positions, basis), density)
 
 
-def slab_density(density: torch.Tensor, l0: int, nl: int) -> torch.Tensor:
-    """D with every column outside ``[l0, l0 + nl)`` set to zero.
-
-    F is linear in D, and ``l`` is D's column index in both the J and the K
-    term, so the Fock build restricted to the quartets with ``l`` in the
-    slab is ``fock_build`` of this density.
-    """
-    keep = torch.zeros(density.shape[1], dtype=density.dtype,
-                       device=density.device)
-    keep[l0:l0 + nl] = 1
-    return density * keep
-
-
 def fock_build_slab(positions: torch.Tensor, density: torch.Tensor,
                     basis: Basis, l0: int, nl: int) -> torch.Tensor:
-    """The partial Fock build over the quartets with ``l in [l0, l0+nl)``."""
-    return fock_build(positions, slab_density(density, l0, nl), basis)
+    """The partial Fock build over the quartets with ``l in [l0, l0+nl)``.
+
+    ``l`` is D's column index in both the J and the K term, so only the
+    integrals with ``l`` in the slab and D's slab of columns are needed.
+    """
+    return fock_from_eri(eri_tensor(positions, basis, l0, nl),
+                         density[:, l0:l0 + nl])
 
 
 def helium_lattice(natoms: int, spacing: float = 1.4,

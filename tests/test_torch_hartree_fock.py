@@ -17,7 +17,7 @@ from repro.core.portable import get_kernel as jax_get_kernel
 from repro.kernels.hartree_fock import kernel as jax_kernel
 from repro.kernels.hartree_fock import ops as jax_ops
 from repro.kernels.hartree_fock import ref as jax_ref
-import repro_torch.kernels.hartree_fock.ops  # noqa: F401
+from repro_torch.kernels.hartree_fock import ops as hf_ops
 from repro_torch.core import conformance
 from repro_torch.core.portable import get_kernel
 from repro_torch.kernels.hartree_fock import kernel as K
@@ -92,14 +92,21 @@ def test_four_slab_cover_matches_reference(natoms, ngauss):
 
 
 def test_plain_slab_is_the_build_of_the_masked_density():
+    # the slab's integrals are, bit for bit, the full tensor's l-slab ...
     pos, dens = _system(8)
     basis = ref.sto_basis(3, device="cpu")
-    masked = ref.slab_density(dens, 2, 3)
-    assert bool((masked[:, 2:5] == dens[:, 2:5]).all())
-    assert bool((masked[:, :2] == 0).all()) and bool((masked[:, 5:] == 0).all())
+    eri = ref.eri_tensor(pos, basis)
+    torch.testing.assert_close(ref.eri_tensor(pos, basis, 2, 3),
+                               eri[..., 2:5], rtol=0, atol=0)
     torch.testing.assert_close(ref.fock_build_slab(pos, dens, basis, 2, 3),
-                               ref.fock_build(pos, masked, basis), rtol=0,
-                               atol=0)
+                               ref.fock_from_eri(eri[..., 2:5], dens[:, 2:5]),
+                               rtol=0, atol=0)
+    # ... and, F being linear in D with l D's column index in both terms,
+    # the slab build is the full build of D with every other column zeroed
+    masked = torch.zeros_like(dens)
+    masked[:, 2:5] = dens[:, 2:5]
+    torch.testing.assert_close(ref.fock_build_slab(pos, dens, basis, 2, 3),
+                               ref.fock_build(pos, masked, basis))
 
 
 @pytest.mark.parametrize("natoms", [1, 8, 27, 64, 128])
@@ -163,6 +170,21 @@ def test_flops_model_matches_reference():
     # the paper's two smallest He systems: 2.17e10 quartets each
     assert k.flops_model(torch.zeros(128, 3), None, 3) == \
         k.flops_model(torch.zeros(64, 3), None, 6) == 120.0 * 128 ** 4 * 81
+
+
+@pytest.mark.parametrize("natoms,l0,nl", [(5, 0, None), (5, 0, 1), (5, 3, 2),
+                                          (6, 1, 3), (4, 0, 4)])
+def test_unique_integrals_counts_the_symmetry_classes(natoms, l0, nl):
+    def canonical(i, j, k, l):
+        # (ij|kl) = (ji|kl) = (ij|lk) = (kl|ij) = ...: the 8 index orders
+        bra, ket = (i, j), (k, l)
+        return min(x + y for p, q in ((bra, ket), (ket, bra))
+                   for x in (p, p[::-1]) for y in (q, q[::-1]))
+    slab = range(l0, natoms if nl is None else l0 + nl)
+    classes = {canonical(i, j, k, l) for i in range(natoms)
+               for j in range(natoms) for k in range(natoms) for l in slab}
+    assert hf_ops.unique_integrals(natoms, nl) == len(classes)
+    assert hf_ops.least_flops(natoms, 3, nl) == len(classes) * (60 * 81 + 12)
 
 
 def test_pad4_matches_reference():

@@ -16,7 +16,10 @@ import pytest
 import torch
 
 import repro_torch.kernels  # noqa: F401
-from repro_torch.core import Efficiency, conformance, get_kernel, phi_bar
+from repro_torch.core import (Efficiency, conformance, get_kernel, phi_bar,
+                              time_call)
+from repro_torch.core.portable import (CALLS_PER_SAMPLE, LONG_CALL_S,
+                                       LONG_CALL_SAMPLES)
 from repro_torch.kernels.babelstream import kernel as stream_kernel
 from repro_torch.kernels.babelstream import ref as stream_ref
 from repro_torch.kernels.hartree_fock import kernel as hf_kernel
@@ -198,6 +201,22 @@ def test_hand_written_conformance_cell(cuda, name):
     before = wrapper.launches
     conformance.check_backend(name, k.native, device=cuda)
     assert wrapper.launches > before
+
+
+@pytest.mark.parametrize("cycles,calls", [(0, 2 + 20 * CALLS_PER_SAMPLE),
+                                          (10_000_000, 2 + LONG_CALL_SAMPLES)])
+def test_time_call_times_long_calls_one_a_sample(cuda, cycles, calls):
+    # ~6 ms of spinning at the H100's clock, against a near-empty call
+    x, count = torch.zeros(1, device=cuda), [0]
+
+    def call(t):
+        count[0] += 1
+        torch.cuda._sleep(cycles)
+        return t
+
+    t = time_call(call, x, iters=20, warmup=2)
+    assert count[0] == calls
+    assert (t >= LONG_CALL_S) == (cycles > 0)
 
 
 def test_quickstart_path(cuda):
