@@ -7,8 +7,9 @@ The port of ``repro.core.conformance`` for the kernels ported so far:
     same arrays feed the JAX package in the cross-framework tests, and
     ``case_tensors`` moves them onto any device (a kernel without a case
     FAILS conformance — coverage is mandatory);
-  * ``ORACLE_TOL`` is the port's own copy of the reference's rows for the
-    ported kernels (the tests hold the two tables equal);
+  * ``ORACLE_TOL`` and ``BACKEND_TOL`` are the port's own copies of the
+    reference's rows for the ported kernels (the tests hold the tables
+    equal);
   * ``conformance_pairs()`` derives the (kernel, backend) matrix from the
     live registry; ``check_backend`` runs one cell of it, raising
     ``BackendUnavailableError`` when this host cannot run the pair.
@@ -56,6 +57,37 @@ def _hf_case() -> Case:
             hf_ref.initial_density(8, device="cpu").numpy()), {}
 
 
+def _flash_case() -> Case:
+    r = np.random.default_rng(2)
+    b, h, s, dh = 1, 2, 128, 64
+    return tuple((r.standard_normal((b, h, s, dh)) * 0.5).astype(np.float32)
+                 for _ in range(3)), {}
+
+
+def _decode_case() -> Case:
+    """Single-query decode against a ring-buffer cache that exercises both
+    hard edges at once: row 0 has wrapped (slot order != position order),
+    row 1 has empty slots (pos -1 holes)."""
+    r = np.random.default_rng(4)
+    b, h, kv, t, dh = 2, 4, 2, 128, 64
+    q = (r.standard_normal((b, 1, h, dh)) * 0.5).astype(np.float32)
+    k = (r.standard_normal((b, t, kv, dh)) * 0.5).astype(np.float32)
+    v = (r.standard_normal((b, t, kv, dh)) * 0.5).astype(np.float32)
+    pos = np.tile(np.arange(t, dtype=np.int32), (b, 1))
+    pos[0, :5] += t                 # row 0: ring wrapped at slots 0..4
+    pos[1, 41:] = -1                # row 1: cache only 41/128 full
+    q_pos = np.asarray([[t + 5], [41]], np.int32)
+    return (q, k, v, q_pos, pos), {}
+
+
+def _serving_case() -> Case:
+    """The serving engine's token-stream case (``repro_torch.serving.
+    portable``): its args are a model (params, cfg), not arrays, and
+    ``as_tensors`` passes them through."""
+    from repro_torch.serving import portable as serving_portable
+    return serving_portable.case_args(), {}
+
+
 CASES: Dict[str, Callable[[], Case]] = {
     "stencil7": _stencil_case,
     "babelstream.copy": lambda: _stream_case(1),
@@ -65,6 +97,9 @@ CASES: Dict[str, Callable[[], Case]] = {
     "babelstream.dot": lambda: _stream_case(2),
     "minibude.fasten": _minibude_case,
     "hartree_fock.twoel": _hf_case,
+    "attention.flash": _flash_case,
+    "attention.decode": _decode_case,
+    "serving.engine": _serving_case,
 }
 
 #: per-kernel tolerance vs the oracle — the reference's rows
@@ -77,14 +112,28 @@ ORACLE_TOL: Dict[str, Tolerance] = {
     "babelstream.dot": (1e-4, 1e-3),
     "minibude.fasten": (2e-4, 2e-3),
     "hartree_fock.twoel": (1e-4, 1e-4),
+    "attention.flash": (2e-4, 2e-4),
+    "attention.decode": (2e-4, 2e-4),
+    # continuous batching is a scheduling concern: it may never change a
+    # token
+    "serving.engine": "bitwise",
+}
+
+#: (kernel, backend) rows that differ from ORACLE_TOL — the reference's
+#: rows for the ported kernels: the attention oracles' own backends are
+#: bitwise (they are the functions the model's plain path calls)
+BACKEND_TOL: Dict[Tuple[str, str], Tolerance] = {
+    ("attention.flash", "torch"): "bitwise",
+    ("attention.decode", "torch"): "bitwise",
 }
 
 
 def as_tensors(arrays: Tuple[np.ndarray, ...],
                device: Union[str, torch.device]) -> Tuple[torch.Tensor, ...]:
-    """numpy case arrays -> tensors on ``device`` (dtype kept)."""
+    """numpy case arrays -> tensors on ``device`` (dtype kept); anything
+    else (the serving case's model) as it is."""
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in arrays)
+                 if isinstance(a, np.ndarray) else a for a in arrays)
 
 
 def case_tensors(kernel: str, device: Union[str, torch.device] = "cpu"):
@@ -99,7 +148,7 @@ def case_tensors(kernel: str, device: Union[str, torch.device] = "cpu"):
 
 
 def oracle_tolerance(kernel: str, backend: str) -> Tolerance:
-    return ORACLE_TOL.get(kernel)
+    return BACKEND_TOL.get((kernel, backend), ORACLE_TOL.get(kernel))
 
 
 def conformance_pairs() -> List[Tuple[str, str]]:

@@ -5,6 +5,8 @@ far in ``repro_torch.core.portable.registry``.
 """
 
 import repro_torch.kernels.babelstream.ops  # noqa: F401
+import repro_torch.kernels.flash_attention.ops  # noqa: F401
 import repro_torch.kernels.hartree_fock.ops  # noqa: F401
 import repro_torch.kernels.minibude.ops  # noqa: F401
 import repro_torch.kernels.stencil7.ops  # noqa: F401
+

@@ -17,17 +17,22 @@ import torch
 from repro.core import metrics as jax_metrics
 from repro.core.portable import get_kernel as jax_get_kernel
 import repro.kernels.babelstream.ops  # noqa: F401  (registers the reference)
+import repro.kernels.flash_attention.ops  # noqa: F401
 import repro.kernels.hartree_fock.ops  # noqa: F401
 import repro.kernels.minibude.ops  # noqa: F401
 import repro.kernels.stencil7.ops  # noqa: F401
 import repro_torch.kernels  # noqa: F401
+import repro_torch.serving.portable  # noqa: F401  (registers serving.engine)
 from repro_torch.core import (BackendUnavailableError, Efficiency, get_kernel,
                               phi_bar, registry)
 from repro_torch.core import conformance
 
-PORTED = ("babelstream.add", "babelstream.copy", "babelstream.dot",
-          "babelstream.mul", "babelstream.triad", "hartree_fock.twoel",
-          "minibude.fasten", "stencil7")
+PORTED = ("attention.decode", "attention.flash", "babelstream.add",
+          "babelstream.copy", "babelstream.dot", "babelstream.mul",
+          "babelstream.triad", "hartree_fock.twoel", "minibude.fasten",
+          "stencil7")
+#: the serving engine's host loop: oracle ``unbatched``, no kernel
+ENGINE = ("serving.engine", ("engine_contiguous", "unbatched"))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -79,10 +84,11 @@ def test_quickstart_path_on_cpu():
 
 
 def test_registry_holds_the_slice():
-    assert tuple(registry.names()) == PORTED
-    assert conformance.conformance_pairs() == [
-        (name, b) for name in PORTED
-        for b in sorted(("torch", get_kernel(name).native))]
+    assert tuple(registry.names()) == tuple(sorted(PORTED + ENGINE[:1]))
+    assert conformance.conformance_pairs() == sorted(
+        [(name, b) for name in PORTED
+         for b in ("torch", get_kernel(name).native)]
+        + [(ENGINE[0], b) for b in ENGINE[1]])
 
 
 @pytest.mark.parametrize("name", PORTED)

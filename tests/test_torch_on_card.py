@@ -11,16 +11,22 @@ The CPU tests that hold the port against the JAX package are the other
 ``tests/test_torch_*.py`` files.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.kernels  # noqa: F401
+from repro_torch.configs import get_config
 from repro_torch.core import (Efficiency, conformance, get_kernel, phi_bar,
                               time_call)
 from repro_torch.core.portable import (CALLS_PER_SAMPLE, LONG_CALL_S,
                                        LONG_CALL_SAMPLES)
 from repro_torch.kernels.babelstream import kernel as stream_kernel
+from repro_torch.kernels.flash_attention import cases as attn_cases
+from repro_torch.kernels.flash_attention import kernel as attn_kernel
+from repro_torch.kernels.flash_attention import ref as attn_ref
 from repro_torch.kernels.babelstream import ref as stream_ref
 from repro_torch.kernels.hartree_fock import kernel as hf_kernel
 from repro_torch.kernels.hartree_fock import ref as hf_ref
@@ -29,14 +35,22 @@ from repro_torch.kernels.minibude import ops as bude_ops
 from repro_torch.kernels.minibude import ref as bude_ref
 from repro_torch.kernels.stencil7 import kernel as stencil_kernel
 from repro_torch.kernels.stencil7 import ref as stencil_ref
+from repro_torch.models.transformer import init_params
+from repro_torch.serving import portable as serving_portable
 
 OPS = ("copy", "mul", "add", "triad", "dot")
-PORTED = ("babelstream.add", "babelstream.copy", "babelstream.dot",
-          "babelstream.mul", "babelstream.triad", "hartree_fock.twoel",
-          "minibude.fasten", "stencil7")
+PORTED = ("attention.decode", "attention.flash", "babelstream.add",
+          "babelstream.copy", "babelstream.dot", "babelstream.mul",
+          "babelstream.triad", "hartree_fock.twoel", "minibude.fasten",
+          "stencil7")
 STENCIL_RTOL, STENCIL_ATOL = conformance.ORACLE_TOL["stencil7"]
 BUDE_RTOL, BUDE_ATOL = conformance.ORACLE_TOL["minibude.fasten"]
 HF_RTOL, HF_ATOL = conformance.ORACLE_TOL["hartree_fock.twoel"]
+#: attention against its plain version: float32 at the reference's
+#: ORACLE_TOL, bfloat16 at the reference's own bf16 tolerance
+#: (tests/test_kernels_lm.py::test_flash_bf16)
+ATTN_TOL = {torch.float32: conformance.ORACLE_TOL["attention.flash"],
+            torch.bfloat16: (2e-2, 2e-2)}
 
 pytestmark = pytest.mark.gpu
 
@@ -231,3 +245,106 @@ def test_quickstart_path(cuda):
         terms.append(Efficiency(torch.cuda.get_device_name(0), name,
                                 1 / t_port, 1 / t_ref))
     assert phi_bar(terms) > 0
+
+
+# ---- attention ---------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 64, 128])
+def test_flash_kernel_matches_plain(cuda, dtype, dh):
+    space = get_kernel("attention.flash").tunable_space("cuda")
+    rng = np.random.default_rng(dh)
+    for case, b, h, kv, s, t, causal, window in attn_cases.FLASH_SWEEP:
+        # the model's layout, seen through transposed views
+        q, k, v = (x.transpose(1, 2) for x in attn_cases.draw(
+            rng, (b, s, h, dh), (b, t, kv, dh), dtype, cuda))
+        qp, kp, aligned = attn_cases.flash_positions(case, b, s, t)
+        qp, kp = torch.tensor(qp, device=cuda), torch.tensor(kp, device=cuda)
+        pos = (None, None) if case == "index" else (qp, kp)
+        want = attn_ref.flash_ref(q, k, v, *pos, causal=causal,
+                                  window=window)
+        live = attn_ref.admitted(qp, kp, causal=causal, window=window).any(-1)
+        live = live[:, None, :].expand(b, h, s)
+        for p in space.points():
+            before = attn_kernel.flash.launches
+            got = attn_kernel.flash(q, k, v, *pos, causal=causal,
+                                    window=window, k_index_aligned=aligned,
+                                    **p)
+            torch.cuda.synchronize()
+            assert attn_kernel.flash.launches == before + 1
+            assert got.dtype == dtype and got.stride() == q.stride()
+            attn_cases.hold_live(got, want, live, *ATTN_TOL[dtype],
+                                 f"{case} S={s} T={t} {p}")
+
+
+def _decode_case(b, h, kv, t, dh, dtype, device, wrap=0, fill=None, seed=0):
+    """A cache in the model's layout, from the shared sweep's builders."""
+    q, k, v = attn_cases.draw(np.random.default_rng(seed), (b, 1, h, dh),
+                              (b, t, kv, dh), dtype, device)
+    qp, kp = attn_cases.decode_positions(b, t, wrap, fill)
+    return (q, k, v, torch.tensor(qp, device=device),
+            torch.tensor(kp, device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 64, 128])
+def test_decode_kernel_matches_plain(cuda, dtype, dh):
+    space = get_kernel("attention.decode").tunable_space("cuda")
+    for b, h, kv, t, wrap, fill, window in attn_cases.DECODE_SWEEP:
+        q, k, v, qp, kp = _decode_case(b, h, kv, t, dh, dtype, cuda, wrap,
+                                       fill, seed=dh)
+        # the cache as a layer's view of a (layers, ...) tensor
+        k_layers, v_layers = torch.stack([k, k]), torch.stack([v, v])
+        want = attn_ref.decode_ref(q, k, v, qp, kp, window=window)
+        live = attn_ref.admitted(qp, kp, causal=True, window=window).any(-1)
+        for p in space.points():
+            before = attn_kernel.decode.launches
+            got = attn_kernel.decode(q, k_layers[1], v_layers[1], qp, kp,
+                                     window=window, **p)
+            torch.cuda.synchronize()
+            assert attn_kernel.decode.launches == before + 1
+            attn_cases.hold_live(got, want, live, *ATTN_TOL[dtype],
+                                 f"T={t} wrap={wrap} {p}")
+
+
+def test_decode_kernel_is_deterministic(cuda):
+    q, k, v, qp, kp = _decode_case(8, 32, 8, 4096, 128, torch.bfloat16,
+                                   cuda, fill=(4096, 3000, 2047, 1348, 700,
+                                               300, 97, 1), seed=5)
+    first = attn_kernel.decode(q, k, v, qp, kp)
+    for _ in range(5):
+        assert torch.equal(first, attn_kernel.decode(q, k, v, qp, kp))
+
+
+def test_attention_kernels_reject_what_they_cannot_run(cuda):
+    q, k, v, qp, kp = _decode_case(2, 4, 2, 64, 64, torch.float32, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        attn_kernel.decode(q.double(), k.double(), v.double(), qp, kp)
+    with pytest.raises(ValueError, match="head_dim"):
+        attn_kernel.decode(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                           v[..., :48].contiguous(), qp, kp)
+    shifted = torch.empty(k.numel() + 1, device=cuda)[1:].view(k.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        attn_kernel.decode(q, shifted, v, qp, kp)
+    with pytest.raises(ValueError, match="bkv"):
+        attn_kernel.decode(q, k, v, qp, kp, bkv=100)
+    fq = q.transpose(1, 2)
+    with pytest.raises(ValueError, match="tiles"):
+        attn_kernel.flash(fq, k.transpose(1, 2), v.transpose(1, 2), bq=48)
+
+
+def test_engine_drains_a_trace_through_the_kernels(cuda):
+    # float32 compute, so that batch-1 and batch-2 GEMMs (other cuBLAS
+    # kernels) leave the greedy tokens alone
+    cfg = dataclasses.replace(get_config("granite-3-8b", smoke=True),
+                              compute_dtype="float32")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_params(cfg, gen, cuda)
+    attn_kernel.flash.launches = attn_kernel.decode.launches = 0
+    got = serving_portable.engine_contiguous(params, cfg)
+    eng_flash, eng_decode = (attn_kernel.flash.launches,
+                             attn_kernel.decode.launches)
+    # 6 prefills; 2 slots x 4 tokens: 3 rounds of 3 decode steps
+    assert eng_flash == cfg.n_layers * len(serving_portable.PROMPT_LENS)
+    assert eng_decode == cfg.n_layers * 9
+    want = serving_portable.unbatched(params, cfg)
+    assert torch.equal(got, want)

@@ -31,7 +31,10 @@ from repro_torch.kernels.stencil7 import kernel as stencil_kernel
 REPO = Path(__file__).resolve().parents[1]
 PORTED = ("babelstream.copy", "babelstream.mul", "babelstream.add",
           "babelstream.triad", "babelstream.dot", "stencil7",
-          "minibude.fasten", "hartree_fock.twoel")
+          "minibude.fasten", "hartree_fock.twoel", "attention.flash",
+          "attention.decode")
+#: the serving engine's host loop, with a case and a tolerance but no kernel
+LOOPS = ("serving.engine",)
 
 
 # ---- metrics and tables equal the reference's ----------------------------
@@ -78,8 +81,9 @@ def test_eq4_matches_reference():
 
 
 def test_oracle_tol_rows_equal_reference():
-    assert set(conformance.ORACLE_TOL) == set(PORTED)
-    for name in PORTED:
+    assert set(conformance.ORACLE_TOL) == set(PORTED + LOOPS)
+    assert set(conformance.CASES) == set(PORTED + LOOPS)
+    for name in PORTED + LOOPS:
         assert conformance.ORACLE_TOL[name] == \
             jax_conformance.ORACLE_TOL[name]
         assert conformance.oracle_tolerance(name, "torch") == \
@@ -93,7 +97,10 @@ def test_cases_are_the_reference_arrays(name):
     assert kwargs == jax_kwargs == {}
     assert len(args) == len(jax_args)
     for ours, theirs in zip(args, jax_args):
-        assert isinstance(ours, np.ndarray) and ours.dtype == np.float32
+        # float32 data; the decode case's positions are int32
+        assert isinstance(ours, np.ndarray)
+        assert ours.dtype == np.asarray(theirs).dtype
+        assert ours.dtype in (np.float32, np.int32)
         np.testing.assert_array_equal(ours, np.asarray(theirs))
     tensors, _ = conformance.case_tensors(name, "cpu")
     for t, a in zip(tensors, args):
@@ -250,7 +257,8 @@ def test_stencil_wrapper_rejects_what_it_cannot_run():
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(_build, "nvcc_path", lambda: None)
-    assert _build.sources() == ["hartree_fock", "minibude", "stencil7"]
+    assert _build.sources() == ["flash_attention", "hartree_fock", "minibude",
+                                "stencil7"]
     with pytest.raises(_build.BuildError, match="nvcc not found"):
         _build.build()
     assert not (tmp_path / "kernels").exists()
@@ -323,6 +331,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.core.conformance, repro_torch._build\n"
         "import repro_torch.kernels.minibude.kernel\n"
         "import repro_torch.kernels.hartree_fock.kernel\n"
+        "import repro_torch.kernels.flash_attention.kernel\n"
+        "import repro_torch.configs, repro_torch.models.transformer\n"
+        "import repro_torch.training.serve_step, repro_torch.serving\n"
         "from repro_torch.core import conformance\n"
         "for name in sorted(conformance.CASES):\n"
         "    conformance.case_tensors(name)\n"
@@ -330,7 +341,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(repro_torch.core.registry.names()) == 8\n"
+        "assert len(repro_torch.core.registry.names()) == 11\n"
         "print('isolated')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(REPO / "src"), str(REPO)])
