@@ -14,7 +14,11 @@ then the LM serving path: granite-3-8b at full width and depth (40 layers,
 random bf16 weights from ``--seed``) served by the port's ``ServingEngine``
 (8 slots, a 4096-slot KV cache, prefill buckets 512 and 2048), whose every
 prefill runs the flash attention kernel and every decode step the
-ring-buffer decode attention kernel, 40 launches a call each.
+ring-buffer decode attention kernel, 40 launches a call each; then RWKV
+serving: rwkv6-3b at full width and depth (32 layers, random bf16 weights
+from ``--seed``) generating for 8 prompts of 2048 tokens as one batch
+through ``serve_step.generate``, whose prefill and every decode step run the
+chunked WKV kernel, 32 launches a call.
 
   1. build:     nvcc for every ``csrc/*.cu`` (all started together), then
                 each kernel once on its small conformance case on the card,
@@ -46,7 +50,24 @@ ring-buffer decode attention kernel, 40 launches a call each.
                 launch counts set to 0 just before and read just after:
                 they must be 40 x prefill calls and 40 x decode steps; one
                 prefill's logits against the plain attention's, and two
-                requests replayed through unbatched ``generate``.
+                requests replayed through unbatched ``generate``;
+  8. rwkv:      the WKV kernel on its conformance case (in 1) and over its
+                chunks at head dims 32 and 64, S = 1, ragged S and S = 2047
+                from a random state (in 1), then at the serving shape (B 8,
+                H 40, S 2048, Dh 64) and the decode step's (S 1, from a
+                state) against the exact recurrence, timed beside it, the
+                plain chunked form and the bound; then rwkv6-3b generates
+                32 greedy tokens for 8 prompts of 2048 tokens with the WKV
+                launch count set to 0 just before and read just after (32
+                a call: 1024); on the same weights in float32, one row's
+                prefill logits against the plain WKV's, and a 2047-token
+                prefill plus one decode step against the 2048-token
+                prefill, within 2% of the range; in bfloat16, where the
+                plain WKV's own two forms disagree by ~5% of the range, the
+                kernel against the plain chunked form and the kernel's
+                handoff on two rows of 2048 tokens, each within twice the
+                serial-against-chunked floor on the same rows;
+                two rows replayed alone (printed, not gated).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  With no CUDA
@@ -57,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -83,7 +105,8 @@ from repro_torch.kernels.flash_attention import cases as attn_cases  # noqa: E40
 from repro_torch.kernels.flash_attention import kernel as attn_kernel  # noqa: E402,E501
 from repro_torch.kernels.flash_attention import ref as attn_ref  # noqa: E402
 from repro_torch.models.common import count_params  # noqa: E402
-from repro_torch.models.transformer import init_params  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    init_params, tree_map)
 from repro_torch.serving import (  # noqa: E402
     ServingEngine, latency_summary, synthetic_trace)
 from repro_torch.training.serve_step import (  # noqa: E402
@@ -92,6 +115,10 @@ from repro_torch.kernels.hartree_fock import kernel as hf_kernel  # noqa: E402
 from repro_torch.kernels.hartree_fock import ops as hf_ops  # noqa: E402
 from repro_torch.kernels.hartree_fock import ref as hf_ref  # noqa: E402
 from repro_torch.kernels.minibude.ops import make_deck  # noqa: E402
+from repro_torch.kernels.rwkv6 import cases as wkv_cases  # noqa: E402
+from repro_torch.kernels.rwkv6 import kernel as wkv_kernel  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
 from repro_torch.kernels.stencil7.ref import default_coefficients  # noqa: E402
 
 STREAM_N = 1 << 25     # the paper's BabelStream size
@@ -122,6 +149,18 @@ BF16_TOL = (2e-2, 2e-2)
 #: (read 1.08% on an H100, PERF.md)
 LOGITS_TOL = 0.02
 
+RWKV = "rwkv6.wkv"          # slice 4's kernel
+#: the RWKV path: rwkv6-3b at full width and depth, 8 prompts of 2048
+#: tokens as one batch through serve_step.generate, 32 greedy new tokens
+RWKV_ARCH = "rwkv6-3b"
+RWKV_BATCH, RWKV_PROMPT, RWKV_NEW = 8, 2048, 32
+RWKV_REPLAY = 2     # rows replayed alone (batch 1): printed, not gated
+RWKV_GATE_ROWS = 2  # rows of the handoff gate and of the bf16 gates
+#: bfloat16 logits against the plain WKV: within this multiple of the plain
+#: WKV's own spread (serial against chunked) on the same rows and tokens
+BF16_FLOOR_X = 2.0
+WKV_TOL = conformance.ORACLE_TOL[RWKV]
+
 SOURCE = {name: "src/repro_torch/kernels/babelstream/kernel.py"
           for name in SLICE1[:5]}
 SOURCE.update({
@@ -131,6 +170,7 @@ SOURCE.update({
     SLAB: "src/repro_torch/csrc/hartree_fock.cu",
     "attention.flash": "src/repro_torch/csrc/flash_attention.cu",
     "attention.decode": "src/repro_torch/csrc/flash_attention.cu",
+    RWKV: "src/repro_torch/csrc/rwkv6.cu",
 })
 REPLACES = {
     "babelstream.copy": "src/repro/kernels/babelstream/kernel.py:99",
@@ -144,6 +184,7 @@ REPLACES = {
     SLAB: "src/repro/kernels/hartree_fock/kernel.py:180",
     "attention.flash": "src/repro/kernels/flash_attention/kernel.py:118",
     "attention.decode": "src/repro/kernels/flash_attention/kernel.py:215",
+    RWKV: "src/repro/kernels/rwkv6/kernel.py:70",
 }
 
 # one PyTorch call computing the same function: the yardstick, never
@@ -576,6 +617,284 @@ def serve(dev, seed: int) -> Dict[str, Any]:
     return out
 
 
+# ---- slice 4: the RWKV6 WKV and RWKV serving -------------------------------
+def wkv_sweep(dev) -> float:
+    """The WKV kernel over every chunk at head dims 32 and 64,
+    S = 1, 63, 200 and 2047, from a random state: y and the final state
+    against the exact recurrence at ORACLE_TOL.  Returns the worst max abs
+    error."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    worst, calls = 0.0, 0
+    for dh in wkv_cases.SWEEP_DH:
+        for s in wkv_cases.SWEEP_S:
+            args, s0 = wkv_cases.draw(gen, 2, 4, s, dh, dev)
+            want = wkv_ref.wkv_serial(*args, s0)
+            for pt in wkv_cases.points():
+                got = wkv_kernel.wkv(*args, s0.clone(), **pt)
+                worst = max(worst, wkv_cases.hold(
+                    got, want, *WKV_TOL, f"{RWKV} sweep dh={dh} S={s} {pt}"))
+                calls += 1
+    print(f"tunable sweep {RWKV}[cuda]: {calls} calls over chunk "
+          f"{wkv_kernel.CHUNK_GRID}, Dh "
+          f"{wkv_cases.SWEEP_DH}, S {wkv_cases.SWEEP_S} from a random state "
+          f"(float32 at ORACLE_TOL {WKV_TOL}), worst max abs err {worst:.3g}")
+    return worst
+
+
+def wkv_checks(dev, seed: int, bw: float, peak: float) -> Dict[str, Any]:
+    """The WKV at the serving shape (B 8, H 40, S 2048, Dh 64 from zeros:
+    the prefill of the RWKV load) and at its decode step (S 1 from a state),
+    each against the exact recurrence at ORACLE_TOL, timed with time_call
+    and as a CUDA graph beside the plain versions and the bound.  The plain
+    time is the serial oracle's, a loop of S steps whose time is mostly the
+    host's launches; the plain chunked form, one chunk at a time, is timed
+    beside it.  The bound counts the fewest flops (``ops.least_flops``),
+    not the reference's model, which charges the chunk's whole C x C
+    square; no single PyTorch call computes the WKV."""
+    k = get_kernel(RWKV)
+    cfg = get_config(RWKV_ARCH)
+    h, dh = cfg.d_model // 64, 64
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    out: Dict[str, Any] = {}
+    for label, s, from_state in (("serving shape", RWKV_PROMPT, False),
+                                 ("decode step", 1, True)):
+        args, s0 = wkv_cases.draw(gen, RWKV_BATCH, h, s, dh, dev)
+        start = s0 if from_state else None
+        state = None if start is None else start.clone()
+        if k.default_backend(*args) != k.native:
+            fail(f"{RWKV}: the default backend on CUDA tensors is not the "
+                 f"hand-written {k.native!r}")
+        got = wkv_kernel.wkv(*args, state)
+        want = wkv_ref.wkv_serial(*args, start)
+        err = wkv_cases.hold(got, want, *WKV_TOL, f"{RWKV} at the {label}")
+        # the state goes in and out as it does in serving (in place)
+        ms = time_call(wkv_kernel.wkv, *args, state, iters=ITERS) * 1e3
+        dev_ms = graph_ms(lambda: wkv_kernel.wkv(*args, state))
+        plain_ms = time_call(wkv_ref.wkv_serial, *args, start,
+                             iters=ITERS) * 1e3
+        chunked_ms = time_call(wkv_ref.wkv_chunked, *args, start,
+                               iters=ITERS) * 1e3
+        host_ms = enqueue_ms(k, args, {}, ITERS)
+        moved = sum(x.nbytes for x in args) + got[0].nbytes \
+            + got[1].nbytes * (2 if from_state else 1)
+        ops = k.flops_model(*args)
+        least = wkv_ops.least_flops(*args[0].shape, args[2].shape[-1])
+        t_bytes, t_ops = moved / bw * 1e3, least / peak * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        print(f"{RWKV} at the {label}: B {RWKV_BATCH}, H {h}, S {s}, Dh "
+              f"{dh}, float32, from {'a state' if from_state else 'zeros'}; "
+              f"vs the exact recurrence at {WKV_TOL}: max abs err {err:.3g} "
+              f"(|y| up to {float(want[0].abs().max()):.4g}); {ms:.4f} ms "
+              f"({ops / ms / 1e6:.0f} GFLOP/s by the reference's model, "
+              f"{ops:.4g} flops), {bound_ms / ms:.2%} of the "
+              f"{bound_ms:.4f} ms bound ({moved / 1e6:.2f} MB: "
+              f"{t_bytes:.4f} ms; fewest flops {least:.4g}: {t_ops:.4f} "
+              f"ms), device time (CUDA graph) {dev_ms:.4f} ms = "
+              f"{bound_ms / dev_ms:.2%} of the bound; plain (serial) "
+              f"{plain_ms:.4f} ms, plain chunked {chunked_ms:.4f} ms; "
+              f"library: none exists; host enqueue {host_ms:.4f} ms a call")
+        out[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms,
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations", "library_ms": None,
+                      "graph_ms": dev_ms, "plain_chunked_ms": chunked_ms}
+    return out
+
+
+def handoff(params, cfg, prompt, cache_len, wkv_backend=None):
+    """The last-position logits of a prefill of all but the last token and
+    one decode step of the last, and the caches: the state's handoff from
+    a ragged prefill to the decode step."""
+    b, s = prompt.shape
+    _, caches = prefill(params, cfg, prompt[:, :-1], cache_len=cache_len,
+                        wkv_backend=wkv_backend)
+    pos = torch.full((b, 1), s - 1, dtype=torch.int32, device=prompt.device)
+    return decode_step(params, cfg, prompt[:, -1:], pos, caches,
+                       wkv_backend=wkv_backend)
+
+
+def serve_rwkv(dev, seed: int) -> Dict[str, Any]:
+    """rwkv6-3b at full width and depth: ``generate`` for 8 prompts of 2048
+    tokens as one batch, 32 greedy new tokens, with the WKV launch count
+    read around the run; the logits gates in float32 and in bfloat16; a
+    replay of two rows alone;
+    where the time of a prefill and a decode step goes."""
+    gc.collect()
+    torch.cuda.empty_cache()       # granite's weights and caches are gone
+    print(f"device memory before {RWKV_ARCH}: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    cfg = get_config(RWKV_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    param_gb = n_params * torch.finfo(cfg.cdtype()).bits / 8 / 1e9
+    print(f"serving {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.d_model // 64} heads of 64, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}: {n_params / 1e9:.3f}e9 parameters "
+          f"(count_params; the reference's total_params() says "
+          f"{cfg.total_params() / 1e9:.3f}e9, counting the channel mix as "
+          f"three d x d_ff matrices), {param_gb:.2f} GB in "
+          f"{cfg.compute_dtype}, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (RWKV_BATCH, RWKV_PROMPT))).to(dev)
+    cache_len = RWKV_PROMPT + RWKV_NEW
+    generate(params, cfg, prompt[:, :64], max_new_tokens=2,
+             cache_len=cache_len)                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wkv_kernel.wkv.launches = 0
+    t0 = time.perf_counter()
+    toks = generate(params, cfg, prompt, max_new_tokens=RWKV_NEW,
+                    cache_len=cache_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = wkv_kernel.wkv.launches
+    tokens = RWKV_BATCH * RWKV_NEW
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"main path [rwkv serving] launches: {{{RWKV!r}: {launches}}} "
+          f"(1 prefill + {RWKV_NEW - 1} decode steps x {cfg.n_layers} "
+          f"layers); {tokens} tokens in {wall:.3f} s = {tokens / wall:.2f} "
+          f"tok/s (the {RWKV_BATCH} x {RWKV_PROMPT}-token prefill included); "
+          f"peak "
+          f"device memory {peak_gb:.2f} GB (parameters {param_gb:.2f} GB)")
+    if launches != cfg.n_layers * RWKV_NEW:
+        fail(f"{RWKV}: generate launched the WKV kernel {launches} times, "
+             f"not {cfg.n_layers} a prefill and a decode step: "
+             f"{cfg.n_layers * RWKV_NEW}")
+    if tuple(toks.shape) != (RWKV_BATCH, RWKV_NEW) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"rwkv serving: tokens {tuple(toks.shape)} not all in the "
+             f"vocabulary")
+    out = {"tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
+           "launches": launches, "param_gb": param_gb,
+           "max_memory_allocated_gb": peak_gb}
+
+    def spread(got, want):
+        got, want = got.float(), want.float()
+        if not (bool(torch.isfinite(got).all())
+                and bool(torch.isfinite(want).all())):
+            fail("bfloat16 rwkv logits: non-finite values")
+        return float((got - want).abs().max() / (want.max() - want.min()))
+
+    def gate(got, want, what):
+        got, want = got.float(), want.float()
+        if not (bool(torch.isfinite(got).all())
+                and bool(torch.isfinite(want).all())):
+            fail(f"{what}: non-finite logits")
+        err = float((got - want).abs().max())
+        span = float(want.max() - want.min())
+        same = int(got.argmax(-1).eq(want.argmax(-1)).sum())
+        print(f"{what}: max abs err {err:.4g} against a logit range of "
+              f"{span:.4g} (gate {LOGITS_TOL} of it); same argmax in "
+              f"{same}/{got.shape[0]} rows")
+        if not err <= LOGITS_TOL * span:
+            fail(f"{what}: outside the gate")
+        return err, span
+
+    # The 2% gates run on the same weights widened to float32.  In bfloat16
+    # the plain WKV's own two forms (serial and chunked) disagree by ~5% of
+    # the logit range after 32 random-weight layers and 2048 tokens: a
+    # rounding flip of a decay grows through the recurrence.  So the bf16
+    # gates below are held to that floor, measured on the same rows.
+    # Float32 matmuls run in full float32 (no TF32).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    row = prompt[:1]
+    got = prefill(params32, cfg32, row, cache_len=cache_len)[0]
+    want = prefill(params32, cfg32, row, cache_len=cache_len,
+                   wkv_backend="torch")[0]
+    out["logits_err"], out["logits_span"] = gate(
+        got, want, f"float32 prefill logits (1 row of {RWKV_PROMPT}), "
+        f"kernel vs plain WKV")
+    # the state's handoff and a ragged tail: 2047 tokens, then one step
+    rows = prompt[:RWKV_GATE_ROWS]
+    step = handoff(params32, cfg32, rows, cache_len)[0]
+    full = prefill(params32, cfg32, rows, cache_len=cache_len)[0]
+    out["handoff_err"], out["handoff_span"] = gate(
+        step, full, f"float32 {RWKV_PROMPT - 1}-token prefill + 1 decode "
+        f"step vs {RWKV_PROMPT}-token prefill, last-position logits of "
+        f"{RWKV_GATE_ROWS} rows")
+    del params32, got, want, step, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    # bfloat16, last-position logits of the gate's rows at 2048 tokens: the
+    # floor is the plain WKV's serial form (2047 tokens + 1 step, ~12 s of
+    # launches) against its chunked form (the 2048-token prefill); the
+    # kernel's prefill against the chunked form and the kernel's own
+    # 2047 + 1 handoff against its prefill must each stay within
+    # BF16_FLOOR_X times that floor
+    chunked = prefill(params, cfg, rows, cache_len=cache_len,
+                      wkv_backend="torch")[0]
+    serial = handoff(params, cfg, rows, cache_len, wkv_backend="torch")[0]
+    kern = prefill(params, cfg, rows, cache_len=cache_len)[0]
+    step = handoff(params, cfg, rows, cache_len)[0]
+    floor = spread(serial, chunked)
+    out["bf16"] = {"floor": floor, "kernel_vs_plain": spread(kern, chunked),
+                   "kernel_vs_serial": spread(kern, serial),
+                   "kernel_handoff": spread(step, kern)}
+    print(f"bfloat16, max abs err over the logit range ({RWKV_GATE_ROWS} "
+          f"rows of {RWKV_PROMPT}, last position): the floor, plain serial "
+          f"vs plain chunked, {floor:.2%}; kernel vs plain chunked "
+          f"{out['bf16']['kernel_vs_plain']:.2%} and vs plain serial "
+          f"{out['bf16']['kernel_vs_serial']:.2%}; the kernel's "
+          f"{RWKV_PROMPT - 1} + 1 vs its {RWKV_PROMPT} "
+          f"{out['bf16']['kernel_handoff']:.2%} (gates: kernel vs chunked "
+          f"and the handoff within {BF16_FLOOR_X:g} x the floor, "
+          f"{BF16_FLOOR_X * floor:.2%})")
+    for key in ("kernel_vs_plain", "kernel_handoff"):
+        if not out["bf16"][key] <= BF16_FLOOR_X * floor:
+            fail(f"bfloat16 rwkv logits: {key} {out['bf16'][key]:.2%} "
+                 f"outside {BF16_FLOOR_X:g} x the floor {floor:.2%}")
+    del chunked, serial, kern, step
+    caches = prefill(params, cfg, prompt, cache_len=cache_len)[1]
+
+    # replay: rows alone (batch 1) against the batched run, not gated
+    match = 0
+    for i in range(RWKV_REPLAY):
+        alone = generate(params, cfg, prompt[i:i + 1],
+                         max_new_tokens=RWKV_NEW, cache_len=cache_len)
+        match += int(alone[0].eq(toks[i]).sum())
+    print(f"replay (not gated): {match}/{RWKV_REPLAY * RWKV_NEW} tokens of "
+          f"{RWKV_REPLAY} rows generated alone equal the batched run's")
+    out["replay_match"] = match
+
+    # where the time goes: the batched prefill and one decode step
+    tok = toks[:, -1:].to(torch.int64)
+    pos = torch.full((RWKV_BATCH, 1), RWKV_PROMPT + RWKV_NEW - 1,
+                     dtype=torch.int32, device=dev)
+
+    def one_prefill():
+        prefill(params, cfg, prompt, cache_len=cache_len)
+
+    def one_step():
+        decode_step(params, cfg, tok, pos, caches)
+
+    for name, fn, calls in (("rwkv prefill", one_prefill, 2),
+                            ("rwkv decode step", one_step, 10)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / calls * 1e3
+        busy, top = device_profile(fn)
+        out[f"{name} wall_ms"], out[f"{name} device_ms"] = ms, busy
+        print(f"{name}: {ms:.3f} ms wall, {busy:.3f} ms of kernels "
+              f"(torch.profiler): the device idles {1 - busy / ms:.1%} of "
+              f"it; top kernels (name, ms, calls): {top}")
+    graphed = graph_ms(one_step)
+    out["rwkv decode step graph_ms"] = graphed
+    print(f"rwkv decode step as one CUDA graph: {graphed:.3f} ms on the "
+          f"device")
+    return out
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0,
@@ -606,9 +925,11 @@ def main() -> None:
         ptxas = [ln.strip() for ln in _build.build_log(name).splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
         print(f"built {name}: {'; '.join(ptxas)}")
-    for name in KERNELS + ATTN:
+    case_errs = {}
+    for name in KERNELS + ATTN + (RWKV,):
         k = get_kernel(name)
-        err = conformance.check_backend(name, k.native, device=dev)
+        err = case_errs[name] = conformance.check_backend(name, k.native,
+                                                          device=dev)
         print(f"conformance case {name}[{k.native}] max abs err {err:.3g}")
     (pos8, dens8), _ = conformance.case_tensors("hartree_fock.twoel", dev)
     basis3 = hf_ref.sto_basis(3, device=dev)
@@ -618,6 +939,7 @@ def main() -> None:
         "conformance case hartree_fock.twoel_slab")
     print(f"conformance case {SLAB}[cuda] l in [2, 6) max abs err {err:.3g}")
     attention_sweep(dev)
+    wkv_sweep_err = wkv_sweep(dev)
     print(f"build + small cases: {time.perf_counter() - t0:.1f} s")
 
     # ---- inputs: made on the card from the seed ------------------------
@@ -834,6 +1156,20 @@ def main() -> None:
                "launches": served["launches"][name]}
         rec.update(attn[name])
         records.append(rec)
+
+    # ---- 8. rwkv: the WKV and RWKV serving -----------------------------
+    t0 = time.perf_counter()
+    wkv = wkv_checks(dev, args.seed, bw, peak)
+    rwkv = serve_rwkv(dev, args.seed)
+    print(f"rwkv phase: {time.perf_counter() - t0:.1f} s")
+    rec = {"name": RWKV, "route": get_kernel(RWKV).native,
+           "source": SOURCE[RWKV], "replaces": REPLACES[RWKV],
+           "launches": rwkv["launches"]}
+    rec.update(wkv["serving shape"])
+    rec["max_abs_err"] = max([case_errs[RWKV], wkv_sweep_err]
+                             + [c["max_abs_err"] for c in wkv.values()])
+    rec["cases"] = [dict(case=label, **c) for label, c in wkv.items()]
+    records.append(rec)
     print(f"whole run: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))

@@ -6,16 +6,17 @@ others (``repro/configs/__init__.py``) wait for their slices.
 
 from __future__ import annotations
 
-from repro_torch.configs import granite_3_8b
+from repro_torch.configs import granite_3_8b, rwkv6_3b
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "granite-3-8b": granite_3_8b,
+    "rwkv6-3b": rwkv6_3b,
 }
 
 #: the reference's other archs, each waiting for a later slice of the port
 NOT_PORTED = ("stablelm-1.6b", "starcoder2-3b", "deepseek-67b",
-              "whisper-tiny", "pixtral-12b", "hymba-1.5b", "rwkv6-3b",
+              "whisper-tiny", "pixtral-12b", "hymba-1.5b",
               "deepseek-moe-16b", "llama4-scout-17b-a16e")
 
 ARCH_IDS = tuple(_MODULES)

@@ -80,6 +80,20 @@ def _decode_case() -> Case:
     return (q, k, v, q_pos, pos), {}
 
 
+def _wkv_case() -> Case:
+    """The reference's WKV case.  Its log-decays are ``-exp(clip(n, -8,
+    1))`` taken by numpy here and by XLA there: the two exps agree to two
+    float32 ulps, not bit for bit."""
+    r = np.random.default_rng(3)
+    b, h, s, dh = 1, 2, 64, 32
+    rr, kk, vv = ((r.standard_normal((b, h, s, dh)) * 0.5).astype(np.float32)
+                  for _ in range(3))
+    n = r.standard_normal((b, h, s, dh)).astype(np.float32)
+    lw = -np.exp(np.clip(n, -8, 1))
+    u = (r.standard_normal((h, dh)) * 0.5).astype(np.float32)
+    return (rr, kk, vv, lw, u), {}
+
+
 def _serving_case() -> Case:
     """The serving engine's token-stream case (``repro_torch.serving.
     portable``): its args are a model (params, cfg), not arrays, and
@@ -99,6 +113,7 @@ CASES: Dict[str, Callable[[], Case]] = {
     "hartree_fock.twoel": _hf_case,
     "attention.flash": _flash_case,
     "attention.decode": _decode_case,
+    "rwkv6.wkv": _wkv_case,
     "serving.engine": _serving_case,
 }
 
@@ -114,6 +129,7 @@ ORACLE_TOL: Dict[str, Tolerance] = {
     "hartree_fock.twoel": (1e-4, 1e-4),
     "attention.flash": (2e-4, 2e-4),
     "attention.decode": (2e-4, 2e-4),
+    "rwkv6.wkv": (3e-4, 3e-4),
     # continuous batching is a scheduling concern: it may never change a
     # token
     "serving.engine": "bitwise",

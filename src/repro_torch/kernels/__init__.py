@@ -8,5 +8,6 @@ import repro_torch.kernels.babelstream.ops  # noqa: F401
 import repro_torch.kernels.flash_attention.ops  # noqa: F401
 import repro_torch.kernels.hartree_fock.ops  # noqa: F401
 import repro_torch.kernels.minibude.ops  # noqa: F401
+import repro_torch.kernels.rwkv6.ops  # noqa: F401
 import repro_torch.kernels.stencil7.ops  # noqa: F401
 

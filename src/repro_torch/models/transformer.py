@@ -12,8 +12,12 @@ Weights are held once in the compute dtype (the reference casts every layer
 to it at each call, ``cast_tree``, which gives the same values); the final
 norm's scale stays in the parameter dtype, as the reference uses it uncast.
 
-MoE, SSM, RWKV, cross-attention and encoder branches wait for later slices
-of the port and raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+RWKV layers (``models/rwkv.py``) keep their recurrent state in the cache:
+``{"wkv": (B, H, 64, 64) float32, "tm_last", "cm_last": (B, 1, d)}`` a
+layer, stacked like the K/V of an attention segment, and written in place.
+
+MoE, SSM, cross-attention and encoder branches wait for later slices of the
+port and raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import (Params, apply_mlp, apply_norm,
                                        dense_init, embed_init, mlp_init,
                                        norm_init)
@@ -68,12 +73,12 @@ def layer_kind(cfg: ModelConfig, idx: int) -> Dict[str, Any]:
 
 
 def _require_dense(cfg: ModelConfig, kind: Dict[str, Any]) -> None:
-    missing = [k for k in ("moe", "rwkv", "ssm", "cross") if kind[k]]
+    missing = [k for k in ("moe", "ssm", "cross") if kind[k]]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the {'/'.join(missing)} layer branch is not ported "
-            f"yet (ROADMAP.md, Queue 1 items 8-9); the port runs dense "
-            f"decoder-only attention layers")
+            f"yet (ROADMAP.md, Queue 1 item 8); the port runs dense "
+            f"decoder-only attention layers and RWKV layers")
 
 
 # --------------------------------------------------------------------------
@@ -84,6 +89,13 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, idx: int,
     kind = layer_kind(cfg, idx)
     _require_dense(cfg, kind)
     d, dt = cfg.d_model, cfg.cdtype()
+    if kind["rwkv"]:
+        # rwkv keeps its pre-norms with the block, as the reference's
+        # init_params adds them
+        return {**rwkv_mod.rwkv_layer_init(gen, d, cfg.d_ff, d // 64, dt,
+                                           device, cfg.n_layers),
+                "ln_tm": norm_init(d, cfg.norm, dt, device),
+                "ln_cm": norm_init(d, cfg.norm, dt, device)}
     return {
         "ln1": norm_init(d, cfg.norm, dt, device),
         "attn": attn.attention_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
@@ -94,11 +106,40 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, idx: int,
     }
 
 
+def _rwkv_layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                      cache: Optional[Params],
+                      wkv_backend: Optional[str]) -> torch.Tensor:
+    """Time mix + channel mix; writes the state and last tokens into
+    ``cache`` in place (the WKV kernel writes its state there itself)."""
+    st = cache or {}
+    h, (wkv, tm_last) = rwkv_mod.time_mix_apply(
+        p["tm"], apply_norm(p["ln_tm"], x, cfg.norm,
+                            bf16_mul=cfg.norm_bf16_mul), cfg.d_model // 64,
+        state=st.get("wkv"), last_x=st.get("tm_last"),
+        use_chunked=x.shape[1] > 1, wkv_backend=wkv_backend)
+    x = x + h
+    h2, cm_last = rwkv_mod.channel_mix_apply(
+        p["cm"], apply_norm(p["ln_cm"], x, cfg.norm,
+                            bf16_mul=cfg.norm_bf16_mul),
+        last_x=st.get("cm_last"))
+    if cache is not None:
+        if wkv is not cache["wkv"]:
+            cache["wkv"].copy_(wkv)
+        cache["tm_last"].copy_(tm_last)
+        cache["cm_last"].copy_(cm_last)
+    return x + h2
+
+
 def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 kind: Dict[str, Any], *, positions: torch.Tensor,
-                cache: Optional[Params] = None) -> torch.Tensor:
-    """One pre-norm attention + MLP layer; writes ``cache`` in place."""
+                cache: Optional[Params] = None,
+                wkv_backend: Optional[str] = None) -> torch.Tensor:
+    """One pre-norm layer (attention + MLP, or RWKV time + channel mix);
+    writes ``cache`` in place.  ``wkv_backend`` picks the RWKV layers' WKV
+    (``models/rwkv.py::resolve_wkv_backend``)."""
     _require_dense(cfg, kind)
+    if kind["rwkv"]:
+        return _rwkv_layer_apply(p, x, cfg, cache, wkv_backend)
     h = apply_norm(p["ln1"], x, cfg.norm, bf16_mul=cfg.norm_bf16_mul)
     a_out, _ = attn.attention_apply(
         p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -137,12 +178,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """``fn`` on every leaf of a tree of dicts and lists (a tuple comes
+    back as a list)."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
+
+
+def _first_leaf(tree: Any) -> Any:
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values() if isinstance(tree, dict) else tree))
+    return tree
 
 
 def params_from_jax(tree: Params, cfg: ModelConfig,
@@ -163,18 +212,18 @@ def params_from_jax(tree: Params, cfg: ModelConfig,
 
     cdt = cfg.cdtype()
     out: Params = {"embed": leaf(cdt)(tree["embed"]),
-                   "final_norm": _tree_map(leaf(cfg.pdtype()),
-                                           tree["final_norm"])}
+                   "final_norm": tree_map(leaf(cfg.pdtype()),
+                                          tree["final_norm"])}
     if "unembed" in tree:
         out["unembed"] = leaf(cdt)(tree["unembed"])
-    out["eager"] = {k: _tree_map(leaf(cdt), v)
+    out["eager"] = {k: tree_map(leaf(cdt), v)
                     for k, v in tree["eager"].items()}
     out["segments"] = []
     for seg in tree["segments"]:
-        stacked = _tree_map(leaf(cdt), seg)
+        stacked = tree_map(leaf(cdt), seg)
         out["segments"].append(
-            [_tree_map(lambda t, i=i: t[i].clone(), stacked)
-             for i in range(len(stacked["ln1"]["scale"]))])
+            [tree_map(lambda t, i=i: t[i].clone(), stacked)
+             for i in range(len(_first_leaf(stacked)))])
     return out
 
 
@@ -200,8 +249,8 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def _run_layers(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                positions: torch.Tensor,
-                caches: Optional[Params] = None) -> torch.Tensor:
+                positions: torch.Tensor, caches: Optional[Params] = None,
+                wkv_backend: Optional[str] = None) -> torch.Tensor:
     """Execute the layer plan; each layer writes its cache view in place."""
     seg_i = 0
     for tag, arg in layer_plan(cfg):
@@ -209,14 +258,16 @@ def _run_layers(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             c = None if caches is None else caches["eager"][str(arg)]
             x = layer_apply(params["eager"][str(arg)], x, cfg,
                             layer_kind(cfg, arg), positions=positions,
-                            cache=c)
+                            cache=c, wkv_backend=wkv_backend)
             continue
         kind = layer_kind(cfg, arg[0])    # homogeneous within a segment
         seg_cache = None if caches is None else caches["segments"][seg_i]
         for i, lp in enumerate(params["segments"][seg_i]):
-            c = None if seg_cache is None else {
-                "self": {k: t[i] for k, t in seg_cache["self"].items()}}
-            x = layer_apply(lp, x, cfg, kind, positions=positions, cache=c)
+            # layer i's views of the segment's stacked leaves
+            c = None if seg_cache is None else tree_map(
+                lambda t, i=i: t[i], seg_cache)
+            x = layer_apply(lp, x, cfg, kind, positions=positions, cache=c,
+                            wkv_backend=wkv_backend)
         seg_i += 1
     return x
 
@@ -225,7 +276,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             caches: Optional[Params] = None, last_only: bool = False,
             lengths: Optional[torch.Tensor] = None,
-            attn_backend: Optional[str] = None
+            attn_backend: Optional[str] = None,
+            wkv_backend: Optional[str] = None
             ) -> Tuple[torch.Tensor, Optional[Params]]:
     """tokens (B, S) -> (logits (B, S, V), caches).
 
@@ -234,7 +286,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     serving).  ``lengths`` (B,) are true prompt lengths of a left-padded
     batch (pads masked via position -1, see ``leftpad_positions``), ignored
     when ``positions`` are given.  ``attn_backend`` overrides
-    ``cfg.attn_backend`` for this call.  Padded vocab columns get -1e9.
+    ``cfg.attn_backend`` for this call, ``wkv_backend`` picks the RWKV
+    layers' WKV (``models/rwkv.py::resolve_wkv_backend``).  Padded vocab
+    columns get -1e9.
     The reference's third result, the MoE auxiliary loss, comes with MoE.
     """
     if attn_backend is not None:
@@ -249,9 +303,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions = torch.arange(s, dtype=torch.int32,
                                      device=tokens.device).expand(b, s)
     x = params["embed"][tokens]
-    if not cfg.use_rope:
+    if not cfg.use_rope and not cfg.rwkv:
         x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
-    x = _run_layers(params, x, cfg, positions=positions, caches=caches)
+    x = _run_layers(params, x, cfg, positions=positions, caches=caches,
+                    wkv_backend=wkv_backend)
     x = apply_norm(params["final_norm"], x, cfg.norm,
                    bf16_mul=cfg.norm_bf16_mul)
     if last_only:
@@ -286,15 +341,25 @@ def cache_seq_lens(cfg: ModelConfig, seq_len: int) -> Dict[str, Any]:
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
                 device) -> Params:
     """Decode caches per the layer plan (ring buffers for SWA layers),
-    K/V in the compute dtype; a segment's leaves are stacked on a leading
-    layer axis."""
+    K/V in the compute dtype; an RWKV layer's state float32 and its last
+    tokens in the compute dtype.  A segment's leaves are stacked on a
+    leading layer axis."""
     lens = cache_seq_lens(cfg, seq_len)
 
     def one(n_layers: int, cache_len: int) -> Params:
+        if cfg.rwkv:
+            shape = (n_layers, batch)
+            d, cdt = cfg.d_model, cfg.cdtype()
+            return {"wkv": torch.zeros(*shape, d // 64, 64, 64,
+                                       dtype=torch.float32, device=device),
+                    "tm_last": torch.zeros(*shape, 1, d, dtype=cdt,
+                                           device=device),
+                    "cm_last": torch.zeros(*shape, 1, d, dtype=cdt,
+                                           device=device)}
         c = attn.init_cache(n_layers * batch, cache_len, cfg.n_kv_heads,
                             cfg.head_dim, cfg.cdtype(), device)
-        return {k: t.view(n_layers, batch, *t.shape[1:])
-                for k, t in c.items()}
+        return {"self": {k: t.view(n_layers, batch, *t.shape[1:])
+                         for k, t in c.items()}}
 
     caches: Params = {"eager": {}, "segments": []}
     seg_i = 0
@@ -303,10 +368,9 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
                                        else arg[0]))
         if tag == "eager":
             c = one(1, lens["eager"][str(arg)])
-            caches["eager"][str(arg)] = {"self": {k: t[0]
-                                                  for k, t in c.items()}}
+            caches["eager"][str(arg)] = tree_map(lambda t: t[0], c)
         else:
             caches["segments"].append(
-                {"self": one(arg[1] - arg[0], lens["segments"][seg_i])})
+                one(arg[1] - arg[0], lens["segments"][seg_i]))
             seg_i += 1
     return caches

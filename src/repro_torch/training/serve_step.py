@@ -5,6 +5,12 @@ The port of ``repro/training/serve_step.py``.  Greedy sampling is
 request in the engine) — ``jax.random`` key streams cannot be reproduced,
 so cross-framework tests compare greedy tokens only.  Encoder-decoder
 memory and vision patches come with those archs (ROADMAP).
+
+``attn_backend`` and ``wkv_backend`` pick the attention and RWKV WKV
+backends of every call (``models/attention.py::resolve_attention_backend``,
+``models/rwkv.py::resolve_wkv_backend``); None means the default for the
+tensors' device.  RWKV has no position mask: ``generate`` takes prompts of
+one length, as the reference's does.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ from repro_torch.models.transformer import Params, forward, init_caches
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache_len: int, lengths: Optional[torch.Tensor] = None,
-            attn_backend: Optional[str] = None
+            attn_backend: Optional[str] = None,
+            wkv_backend: Optional[str] = None
             ) -> Tuple[torch.Tensor, Params]:
     """Process the prompt into fresh caches.  Returns (last_logits, caches).
 
@@ -31,18 +38,21 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     caches = init_caches(cfg, tokens.shape[0], cache_len, tokens.device)
     logits, caches = forward(params, cfg, tokens, caches=caches,
                              last_only=True, lengths=lengths,
-                             attn_backend=attn_backend)
+                             attn_backend=attn_backend,
+                             wkv_backend=wkv_backend)
     return logits[:, -1], caches
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, caches: Params, *,
-                attn_backend: Optional[str] = None
+                attn_backend: Optional[str] = None,
+                wkv_backend: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """One token for every sequence.  tokens/positions (B, 1); the caches
     are updated in place and returned."""
     logits, caches = forward(params, cfg, tokens, positions=positions,
-                             caches=caches, attn_backend=attn_backend)
+                             caches=caches, attn_backend=attn_backend,
+                             wkv_backend=wkv_backend)
     return logits[:, -1], caches
 
 
@@ -79,18 +89,20 @@ def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor, *,
              max_new_tokens: int, cache_len: int,
              generator: Optional[torch.Generator] = None,
              temperature: float = 0.0,
-             attn_backend: Optional[str] = None) -> torch.Tensor:
+             attn_backend: Optional[str] = None,
+             wkv_backend: Optional[str] = None) -> torch.Tensor:
     """Greedy/temperature generation loop: prompt (B, S) -> (B, new)."""
     b, s = prompt.shape
     last, caches = prefill(params, cfg, prompt, cache_len=cache_len,
-                           attn_backend=attn_backend)
+                           attn_backend=attn_backend, wkv_backend=wkv_backend)
     tok = sample(last, generator, temperature)
     out = [tok]
     for i in range(1, max_new_tokens):
         pos = torch.full((b, 1), s + i - 1, dtype=torch.int32,
                          device=prompt.device)
         logits, caches = decode_step(params, cfg, tok[:, None], pos, caches,
-                                     attn_backend=attn_backend)
+                                     attn_backend=attn_backend,
+                                     wkv_backend=wkv_backend)
         tok = sample(logits, generator, temperature)
         out.append(tok)
     return torch.stack(out, dim=1)

@@ -75,14 +75,14 @@ def test_config_fields_and_counts_equal_the_reference():
 
 def test_unported_archs_raise_naming_the_roadmap():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("rwkv6-3b")
+        get_config("hymba-1.5b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("changes,match", [
-    ({"n_experts": 4, "top_k": 2}, "moe"), ({"rwkv": True}, "rwkv"),
-    ({"ssm_state": 4}, "ssm"), ({"is_encoder_decoder": True}, "cross")])
+    ({"n_experts": 4, "top_k": 2}, "moe"), ({"ssm_state": 4}, "ssm"),
+    ({"is_encoder_decoder": True}, "cross")])
 def test_unported_branches_raise(changes, match):
     cfg = dataclasses.replace(get_config(ARCH, smoke=True), **changes)
     with pytest.raises(NotImplementedError, match=match):

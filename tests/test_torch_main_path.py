@@ -20,6 +20,7 @@ import repro.kernels.babelstream.ops  # noqa: F401  (registers the reference)
 import repro.kernels.flash_attention.ops  # noqa: F401
 import repro.kernels.hartree_fock.ops  # noqa: F401
 import repro.kernels.minibude.ops  # noqa: F401
+import repro.kernels.rwkv6.ops  # noqa: F401
 import repro.kernels.stencil7.ops  # noqa: F401
 import repro_torch.kernels  # noqa: F401
 import repro_torch.serving.portable  # noqa: F401  (registers serving.engine)
@@ -30,7 +31,7 @@ from repro_torch.core import conformance
 PORTED = ("attention.decode", "attention.flash", "babelstream.add",
           "babelstream.copy", "babelstream.dot", "babelstream.mul",
           "babelstream.triad", "hartree_fock.twoel", "minibude.fasten",
-          "stencil7")
+          "rwkv6.wkv", "stencil7")
 #: the serving engine's host loop: oracle ``unbatched``, no kernel
 ENGINE = ("serving.engine", ("engine_contiguous", "unbatched"))
 

@@ -33,16 +33,21 @@ from repro_torch.kernels.hartree_fock import ref as hf_ref
 from repro_torch.kernels.minibude import kernel as bude_kernel
 from repro_torch.kernels.minibude import ops as bude_ops
 from repro_torch.kernels.minibude import ref as bude_ref
+from repro_torch.kernels.rwkv6 import cases as wkv_cases
+from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
+from repro_torch.kernels.rwkv6 import ref as wkv_ref
 from repro_torch.kernels.stencil7 import kernel as stencil_kernel
 from repro_torch.kernels.stencil7 import ref as stencil_ref
+from repro_torch.models import rwkv as rwkv_model
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import portable as serving_portable
+from repro_torch.training import serve_step as SS
 
 OPS = ("copy", "mul", "add", "triad", "dot")
 PORTED = ("attention.decode", "attention.flash", "babelstream.add",
           "babelstream.copy", "babelstream.dot", "babelstream.mul",
           "babelstream.triad", "hartree_fock.twoel", "minibude.fasten",
-          "stencil7")
+          "rwkv6.wkv", "stencil7")
 STENCIL_RTOL, STENCIL_ATOL = conformance.ORACLE_TOL["stencil7"]
 BUDE_RTOL, BUDE_ATOL = conformance.ORACLE_TOL["minibude.fasten"]
 HF_RTOL, HF_ATOL = conformance.ORACLE_TOL["hartree_fock.twoel"]
@@ -51,6 +56,7 @@ HF_RTOL, HF_ATOL = conformance.ORACLE_TOL["hartree_fock.twoel"]
 #: (tests/test_kernels_lm.py::test_flash_bf16)
 ATTN_TOL = {torch.float32: conformance.ORACLE_TOL["attention.flash"],
             torch.bfloat16: (2e-2, 2e-2)}
+WKV_RTOL, WKV_ATOL = conformance.ORACLE_TOL["rwkv6.wkv"]
 
 pytestmark = pytest.mark.gpu
 
@@ -206,10 +212,10 @@ def test_new_kernels_reject_what_they_cannot_run(cuda):
 @pytest.mark.parametrize("name", PORTED)
 def test_hand_written_conformance_cell(cuda, name):
     k = get_kernel(name)
-    # the registry's Hartree-Fock backend pads the positions and calls the
-    # counting wrapper
-    wrapper = {"hartree_fock.twoel": hf_kernel.twoel}.get(
-        name, k.backend(k.native).fn)
+    # the registry's Hartree-Fock and WKV backends call the counting
+    # wrappers
+    wrapper = {"hartree_fock.twoel": hf_kernel.twoel,
+               "rwkv6.wkv": wkv_kernel.wkv}.get(name, k.backend(k.native).fn)
     args, _ = conformance.case_tensors(name, cuda)
     assert k.default_backend(*args) == k.native
     before = wrapper.launches
@@ -347,4 +353,110 @@ def test_engine_drains_a_trace_through_the_kernels(cuda):
     assert eng_flash == cfg.n_layers * len(serving_portable.PROMPT_LENS)
     assert eng_decode == cfg.n_layers * 9
     want = serving_portable.unbatched(params, cfg)
+    assert torch.equal(got, want)
+
+
+# ---- the RWKV6 WKV ----------------------------------------------------------
+@pytest.mark.parametrize("dh", wkv_cases.SWEEP_DH)
+def test_wkv_kernel_matches_plain(cuda, dh):
+    """Every chunk at ragged S, S = 1 and several chunks, from
+    a given state and from zeros: y and the final state against the exact
+    recurrence in float32."""
+    gen = torch.Generator(device=cuda).manual_seed(dh)
+    for s in wkv_cases.SWEEP_S[:-1] + (130,):
+        args, s0 = wkv_cases.draw(gen, 2, 3, s, dh, cuda)
+        for start in (s0, None):
+            want = wkv_ref.wkv_serial(*args, start)
+            for p in wkv_cases.points():
+                state = None if start is None else start.clone()
+                before = wkv_kernel.wkv.launches
+                got = wkv_kernel.wkv(*args, state, **p)
+                torch.cuda.synchronize()
+                assert wkv_kernel.wkv.launches == before + 1
+                if state is not None:
+                    assert got[1] is state       # written in place
+                wkv_cases.hold(got, want, WKV_RTOL, WKV_ATOL,
+                               f"dh={dh} S={s} S0={start is not None} {p}")
+
+
+def test_wkv_kernel_is_deterministic(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    args, s0 = wkv_cases.draw(gen, 2, 40, 300, 64, cuda)
+    first = wkv_kernel.wkv(*args, s0.clone())
+    for _ in range(5):
+        again = wkv_kernel.wkv(*args, s0.clone())
+        assert torch.equal(first[0], again[0])
+        assert torch.equal(first[1], again[1])
+
+
+def test_wkv_kernel_rejects_what_it_cannot_run(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    (r, k, v, lw, u), s0 = wkv_cases.draw(gen, 1, 2, 8, 64, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        wkv_kernel.wkv(r.double(), k.double(), v.double(), lw.double(),
+                       u.double())
+    with pytest.raises(TypeError, match="float32"):
+        wkv_kernel.wkv(r, k, v, lw, u, s0.bfloat16())
+    with pytest.raises(ValueError, match="one device"):
+        wkv_kernel.wkv(r, k, v, lw, u.cpu())
+    with pytest.raises(ValueError, match="one shape"):
+        wkv_kernel.wkv(r, k, v[:, :, :4], lw, u)
+    with pytest.raises(ValueError, match="head_dim"):
+        wkv_kernel.wkv(*(x[..., :16] for x in (r, k, v, lw)),
+                       u[:, :16].contiguous())
+    with pytest.raises(ValueError, match="chunk"):
+        wkv_kernel.wkv(r, k, v, lw, u, chunk=8)
+    shifted = torch.empty(r.numel() + 1, device=cuda)[1:].view(r.shape)
+    with pytest.raises(ValueError, match="16"):
+        wkv_kernel.wkv(shifted, k, v, lw, u)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv_kernel.wkv(r, k, v, lw, u, s0.transpose(2, 3))
+    odd = torch.empty(s0.numel() + 1, device=cuda)[1:].view(s0.shape)
+    with pytest.raises(ValueError, match="aligned state"):
+        wkv_kernel.wkv(r, k, v, lw, u, odd)
+
+
+def test_time_mix_launches_the_wkv_kernel(cuda):
+    """The model's time mix on CUDA tensors runs the kernel at every S
+    (a prompt and a one-token step), writes the state in place, and agrees
+    with its plain path; ``wkv_backend="torch"`` launches nothing."""
+    cfg = dataclasses.replace(get_config("rwkv6-3b", smoke=True),
+                              compute_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    p = params["segments"][0][0]["tm"]
+    n_heads = cfg.d_model // 64
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for s in (64, 37, 1):
+        x = torch.randn(2, s, cfg.d_model, generator=gen, device=cuda)
+        last = torch.randn(2, 1, cfg.d_model, generator=gen, device=cuda)
+        state = torch.randn(2, n_heads, 64, 64, generator=gen, device=cuda)
+        before = wkv_kernel.wkv.launches
+        want, (want_s, _) = rwkv_model.time_mix_apply(
+            p, x, n_heads, state=state.clone(), last_x=last,
+            wkv_backend="torch")
+        assert wkv_kernel.wkv.launches == before
+        got, (got_s, _) = rwkv_model.time_mix_apply(
+            p, x, n_heads, state=state, last_x=last)
+        assert wkv_kernel.wkv.launches == before + 1
+        assert got_s is state
+        torch.testing.assert_close(got, want, rtol=WKV_RTOL, atol=WKV_ATOL)
+        torch.testing.assert_close(got_s, want_s, rtol=WKV_RTOL,
+                                   atol=WKV_ATOL)
+
+
+def test_rwkv_generate_runs_the_kernel_at_every_step(cuda):
+    cfg = dataclasses.replace(get_config("rwkv6-3b", smoke=True),
+                              compute_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 70), device=cuda,
+                           generator=gen)
+    wkv_kernel.wkv.launches = 0
+    got = SS.generate(params, cfg, prompt, max_new_tokens=5, cache_len=80)
+    assert wkv_kernel.wkv.launches == cfg.n_layers * 5
+    want = SS.generate(params, cfg, prompt, max_new_tokens=5, cache_len=80,
+                       wkv_backend="torch")
+    assert wkv_kernel.wkv.launches == cfg.n_layers * 5
     assert torch.equal(got, want)

@@ -32,7 +32,10 @@ REPO = Path(__file__).resolve().parents[1]
 PORTED = ("babelstream.copy", "babelstream.mul", "babelstream.add",
           "babelstream.triad", "babelstream.dot", "stencil7",
           "minibude.fasten", "hartree_fock.twoel", "attention.flash",
-          "attention.decode")
+          "attention.decode", "rwkv6.wkv")
+#: case arrays each framework computes with its own exp: numpy's and XLA's
+#: float32 exp agree to two ulps, not bit for bit (the WKV's log-decays)
+EXP_ARRAYS = {("rwkv6.wkv", 3)}
 #: the serving engine's host loop, with a case and a tolerance but no kernel
 LOOPS = ("serving.engine",)
 
@@ -96,12 +99,16 @@ def test_cases_are_the_reference_arrays(name):
     jax_args, jax_kwargs = jax_conformance.CASES[name]()
     assert kwargs == jax_kwargs == {}
     assert len(args) == len(jax_args)
-    for ours, theirs in zip(args, jax_args):
+    for i, (ours, theirs) in enumerate(zip(args, jax_args)):
         # float32 data; the decode case's positions are int32
         assert isinstance(ours, np.ndarray)
         assert ours.dtype == np.asarray(theirs).dtype
         assert ours.dtype in (np.float32, np.int32)
-        np.testing.assert_array_equal(ours, np.asarray(theirs))
+        if (name, i) in EXP_ARRAYS:
+            np.testing.assert_array_max_ulp(ours, np.asarray(theirs),
+                                            maxulp=2)
+        else:
+            np.testing.assert_array_equal(ours, np.asarray(theirs))
     tensors, _ = conformance.case_tensors(name, "cpu")
     for t, a in zip(tensors, args):
         np.testing.assert_array_equal(t.numpy(), a)
@@ -258,7 +265,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(_build, "nvcc_path", lambda: None)
     assert _build.sources() == ["flash_attention", "hartree_fock", "minibude",
-                                "stencil7"]
+                                "rwkv6", "stencil7"]
     with pytest.raises(_build.BuildError, match="nvcc not found"):
         _build.build()
     assert not (tmp_path / "kernels").exists()
@@ -332,7 +339,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.kernels.minibude.kernel\n"
         "import repro_torch.kernels.hartree_fock.kernel\n"
         "import repro_torch.kernels.flash_attention.kernel\n"
+        "import repro_torch.kernels.rwkv6.kernel\n"
         "import repro_torch.configs, repro_torch.models.transformer\n"
+        "import repro_torch.models.rwkv\n"
         "import repro_torch.training.serve_step, repro_torch.serving\n"
         "from repro_torch.core import conformance\n"
         "for name in sorted(conformance.CASES):\n"
@@ -341,7 +350,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "assert len(repro_torch.core.registry.names()) == 11\n"
+        "assert len(repro_torch.core.registry.names()) == 12\n"
         "print('isolated')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(REPO / "src"), str(REPO)])
