@@ -41,16 +41,21 @@ chunked WKV kernel, 32 launches a call.
                 over the registry's kernels; the slab, the Hartree-Fock
                 kernel again, gets its e_i apart;
   6. attention: the two kernels on their float32 conformance cases (in 1),
-                a sweep over their tunables, head dims 64/128, ragged S/T,
-                a window and a wrapped ring, then each in bfloat16 at the
-                serving shapes against its plain version, timed beside
-                ``scaled_dot_product_attention`` and its least-work bound;
+                a sweep over the tunables each dtype is built for, head
+                dims 64/128, ragged S/T, a window, a wrapped ring and a
+                long left-padded prompt (in 1), then each in bfloat16 at
+                the serving shapes against its plain version, timed beside
+                ``scaled_dot_product_attention`` and its least-work bound
+                (``flash_attention/ops.py::least_flops`` for prefill), with
+                every bf16 flash tile point checked and timed as a CUDA
+                graph, and flash's TFLOP/s on the admitted pairs;
   7. serving:   16 greedy requests (prompts of 64-2048 tokens from the seed,
                 32 new tokens each) through the engine, with the attention
                 launch counts set to 0 just before and read just after:
                 they must be 40 x prefill calls and 40 x decode steps; one
                 prefill's logits against the plain attention's, and two
-                requests replayed through unbatched ``generate``;
+                requests replayed through unbatched ``generate``; where a
+                2048-bucket prefill's time goes, flash's share included;
   8. rwkv:      the WKV kernel on its conformance case (in 1) and over its
                 chunks at head dims 32 and 64, S = 1, ragged S and S = 2047
                 from a random state (in 1), then at the serving shape (B 8,
@@ -103,6 +108,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.babelstream.ref import START_SCALAR  # noqa: E402
 from repro_torch.kernels.flash_attention import cases as attn_cases  # noqa: E402,E501
 from repro_torch.kernels.flash_attention import kernel as attn_kernel  # noqa: E402,E501
+from repro_torch.kernels.flash_attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as attn_ref  # noqa: E402
 from repro_torch.models.common import count_params  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
@@ -136,6 +142,7 @@ RECORDS = KERNELS + (SLAB,)
 HF_TOL = conformance.ORACLE_TOL["hartree_fock.twoel"]
 
 ATTN = ("attention.flash", "attention.decode")   # slice 3's kernels
+FLASH_KERNEL = "flash_wgmma_kernel"   # the bf16 prefill kernel's name
 #: the serving path: granite-3-8b at full width and depth
 ARCH = "granite-3-8b"
 SERVE = {"num_slots": 8, "cache_len": 4096, "prefill_buckets": (512, 2048)}
@@ -327,10 +334,11 @@ def graph_ms(fn: Callable[[], Any], iters: int = ITERS) -> float:
                  / CALLS_PER_SAMPLE)
 
 
-def device_profile(fn: Callable[[], Any], top: int = 6):
-    """(device ms, top kernels) of one call of ``fn()`` under
-    ``torch.profiler``: the summed time of the kernels it ran, and the
-    ``top`` kernels by time as (name, ms, calls)."""
+def device_profile(fn: Callable[[], Any], top: int = 6, match: str = ""):
+    """(device ms, top kernels, ms of ``match``) of one call of ``fn()``
+    under ``torch.profiler``: the summed time of the kernels it ran, the
+    ``top`` kernels by time as (name, ms, calls), and the summed time of
+    the kernels whose name holds ``match``."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -341,8 +349,10 @@ def device_profile(fn: Callable[[], Any], top: int = 6):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    matched = sum(e.self_device_time_total for e in kernels
+                  if match and match in e.key) / 1e3
     return busy, [(e.key[:60], e.self_device_time_total / 1e3, e.count)
-                  for e in ranked]
+                  for e in ranked], matched
 
 
 def attention_sweep(dev) -> None:
@@ -351,13 +361,12 @@ def attention_sweep(dev) -> None:
     cases (``flash_attention/cases.py``): ragged S/T, GQA 4:1 and 1:1, a
     window, left pads, a wrapped ring (k_index_aligned False)."""
     rng = np.random.default_rng(11)
-    points = {name: list(get_kernel(name).tunable_space("cuda").points())
-              for name in ATTN}
     worst = dict.fromkeys(ATTN, 0.0)
     calls = dict.fromkeys(ATTN, 0)
 
-    def hold(name, fn, want, live, tol, what):
-        for pt in points[name]:
+    def hold(name, fn, want, live, tol, what, args):
+        # every declared point the inputs' dtype is built for
+        for pt in get_kernel(name).tunable_space("cuda").valid_points(*args):
             err = attn_cases.hold_live(fn(**pt), want, live, *tol,
                                        f"{name} sweep {what} {pt}")
             worst[name] = max(worst[name], err)
@@ -381,7 +390,8 @@ def attention_sweep(dev) -> None:
                     q, k, v, *pos, causal=causal, window=window,
                     k_index_aligned=aligned, **pt),
                     want, live[:, None].expand(b, h, s), tol,
-                    f"{mode} {dtype} dh={dh} S={s} T={t} window={window}")
+                    f"{mode} {dtype} dh={dh} S={s} T={t} window={window}",
+                    (q, k, v))
             for b, h, kv, t, wrap, fill, window in attn_cases.DECODE_SWEEP:
                 q, k, v = attn_cases.draw(rng, (b, 1, h, dh), (b, t, kv, dh),
                                           dtype, dev)
@@ -393,7 +403,8 @@ def attention_sweep(dev) -> None:
                 hold(ATTN[1], lambda **pt: attn_kernel.decode(
                     q, k, v, qp, kp, window=window, **pt),
                     want, live, tol,
-                    f"{dtype} dh={dh} T={t} wrap={wrap} window={window}")
+                    f"{dtype} dh={dh} T={t} wrap={wrap} window={window}",
+                    (q, k, v, qp, kp))
     for name in ATTN:
         print(f"tunable sweep {name}[cuda]: {calls[name]} calls (float32 at "
               f"ORACLE_TOL, bfloat16 at {BF16_TOL}), worst max abs err "
@@ -445,7 +456,7 @@ def attention_cases(dev, seed: int) -> List[AttnCase]:
         live = (live[:, None].expand(q.shape[:3]) if name == ATTN[0]
                 else live)
         return AttnCase(name, args, kwargs, plain, library(mask), live,
-                        4.0 * dh * h * float(mask.sum()),
+                        attn_ops.least_flops(qp, kp, h, dh, causal=True),
                         fixed + kv_rows * row_bytes,
                         fixed + k.shape[0] * t * row_bytes)
 
@@ -606,11 +617,14 @@ def serve(dev, seed: int) -> Dict[str, Any]:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / calls * 1e3
-        busy, top = device_profile(fn)
+        busy, top, flash_ms = device_profile(fn, match=FLASH_KERNEL)
         out[f"{name} wall_ms"], out[f"{name} device_ms"] = wall, busy
+        out[f"{name} flash_ms"] = flash_ms
         print(f"{name}: {wall:.3f} ms wall, {busy:.3f} ms of kernels "
               f"(torch.profiler): the device idles {1 - busy / wall:.1%} of "
-              f"it; top kernels (name, ms, calls): {top}")
+              f"it; top kernels (name, ms, calls): {top}; the bf16 flash "
+              f"kernel ({FLASH_KERNEL}) {flash_ms:.3f} ms = "
+              f"{flash_ms / busy:.1%} of the kernel time")
     graphed = graph_ms(one_step)
     out["decode step graph_ms"] = graphed
     print(f"decode step as one CUDA graph: {graphed:.3f} ms on the device")
@@ -883,7 +897,7 @@ def serve_rwkv(dev, seed: int) -> Dict[str, Any]:
             fn()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / calls * 1e3
-        busy, top = device_profile(fn)
+        busy, top, _ = device_profile(fn)
         out[f"{name} wall_ms"], out[f"{name} device_ms"] = ms, busy
         print(f"{name}: {ms:.3f} ms wall, {busy:.3f} ms of kernels "
               f"(torch.profiler): the device idles {1 - busy / ms:.1%} of "
@@ -910,7 +924,8 @@ def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip())
+    card = smi.stdout.strip()
+    print(card)
     label, bw, peak, peak_bf16 = datasheet(kind)
     print(f"bound rates: {label} data sheet, {bw / 1e12} TB/s HBM, "
           f"{peak / 1e12} TFLOP/s float32, {peak_bf16 / 1e12} TFLOP/s "
@@ -1108,9 +1123,9 @@ def main() -> None:
         if k.default_backend(*c.args, **c.kwargs) != k.native:
             fail(f"{c.name}: the default backend on CUDA tensors is not "
                  f"the hand-written {k.native!r}")
-        err = attn_cases.hold_live(
-            k(*c.args, **c.kwargs), c.plain(*c.args, **c.kwargs), c.live,
-            *BF16_TOL, f"{c.name} at the serving shape")
+        want = c.plain(*c.args, **c.kwargs)
+        err = attn_cases.hold_live(k(*c.args, **c.kwargs), want, c.live,
+                                   *BF16_TOL, f"{c.name} at the serving shape")
         ms = time_call(k.backend(k.native).fn, *c.args, iters=ITERS,
                        **c.kwargs) * 1e3
         plain_ms = time_call(c.plain, *c.args, iters=ITERS, **c.kwargs) * 1e3
@@ -1122,6 +1137,24 @@ def main() -> None:
             for key, f, kw in (("kernel", k.backend(k.native).fn, c.kwargs),
                                ("plain", c.plain, c.kwargs),
                                ("library", c.library, {}))}
+        if c.name == ATTN[0]:
+            # every declared tile point of the bf16 kernel, as a graph
+            tiles = {}
+            for pt in k.tunable_space("cuda").valid_points(*c.args):
+                attn_cases.hold_live(
+                    attn_kernel.flash(*c.args, **c.kwargs, **pt), want,
+                    c.live, *BF16_TOL, f"{c.name} at the serving shape {pt}")
+                tiles[f"bq {pt['bq']} bk {pt['bk']}"] = graph_ms(
+                    lambda pt=pt: attn_kernel.flash(*c.args, **c.kwargs,
+                                                    **pt))
+            print(f"{c.name} tile points at the serving shape, device ms "
+                  f"(CUDA graph) on {card}: {tiles}; default "
+                  f"{attn_kernel.FLASH_DEFAULT[torch.bfloat16]}")
+            dev_ms["tiles"] = tiles
+            print(f"{c.name}: {c.least_flops / dev_ms['kernel'] / 1e9:.1f} "
+                  f"TFLOP/s on the admitted pairs (CUDA graph), library "
+                  f"(scaled_dot_product_attention) "
+                  f"{c.least_flops / dev_ms['library'] / 1e9:.1f}, on {card}")
         t_bytes = c.least_bytes / bw * 1e3
         t_ops = c.least_flops / peak_bf16 * 1e3
         bound_ms = max(t_bytes, t_ops)
@@ -1136,7 +1169,7 @@ def main() -> None:
               f" ms), plain {plain_ms:.4f} ms, library "
               f"(scaled_dot_product_attention) {library_ms:.4f} ms, host "
               f"enqueue {host_ms:.4f} ms a call")
-        print(f"{c.name} device time (CUDA graph replay): kernel "
+        print(f"{c.name} device time (CUDA graph replay) on {card}: kernel "
               f"{dev_ms['kernel']:.4f} ms = {bound_ms / dev_ms['kernel']:.2%}"
               f" of the bound, plain {dev_ms['plain']:.4f} ms, library "
               f"{dev_ms['library']:.4f} ms")

@@ -7,36 +7,67 @@
 // online-softmax state in VMEM scratch) and ::decode_attention (grid
 // (B, Kv, n_t), the cache axis sequential).
 //
-// Both take float32 or bfloat16 q/k/v (bf16 is the model's compute dtype,
-// f32 the conformance dtype), accumulate in float32, round the softmax
-// probabilities to v's dtype before P.V (as _flash_body's p.astype(v.dtype)
-// does) and write the output in q's dtype.  A key is admitted for a query
-// when kp >= 0 (-1 marks an empty or pad slot), kp <= qp when causal, and
-// qp - kp < window when window > 0: the reference's mask.  A query row that
-// admits no key is written as 0, never NaN (the reference's contract calls
-// such a row garbage; the oracle returns a uniform average there).
+// Prefill runs bfloat16 (the model's compute dtype) on flash_wgmma_kernel
+// and float32 (the conformance dtype) on flash_kernel; decode takes either.
+// All accumulate in float32, round the softmax probabilities to v's dtype
+// before P.V (as _flash_body's p.astype(v.dtype) does) while the row sums
+// keep them unrounded, and write the output in q's dtype.  A key is
+// admitted for a query when kp >= 0 (-1 marks an empty or pad slot),
+// kp <= qp when causal, and qp - kp < window when window > 0: the
+// reference's mask.  A query row that admits no key is written as 0,
+// never NaN (the reference's contract calls such a row garbage; the oracle
+// returns a uniform average there).
 //
-// flash_kernel (prefill).  What bounds it on the H100: operations.  A
-// prefill of S queries against its own keys does ~4 S^2/2 Dh flops per head
-// against O(S Dh) bytes; this first version runs them on the float32 pipes
-// (mma.sync/wgmma on bf16 tiles come later), so the bound it is held to
-// (989 TFLOP/s bf16) is far off.  What the design does about it: one block
-// per (q tile of BQ rows, head, batch row); a loop inside the block over
-// k tiles replaces the TPU's sequential k grid axis.  The Q tile and the
-// current K (then V) tile sit in shared memory as float32; each of the 256
-// threads computes a (BQ/16) x (BK/16) piece of S = Q K^T from registers,
-// keeps its rows' running max and sum (m, l) and a (BQ/16) x (Dh/16) piece
-// of the accumulator, and the probabilities go through shared memory into
-// P.V.  GQA maps head h to kv head h / (H / Kv).  Work the mask refuses is
-// skipped two ways: with k_index_aligned (slot j holds position j, or
-// positions are index-aligned up to a left-pad offset) a causal q tile
-// stops at its last row's index, as _flash_body's causal block skip does;
-// and every k tile whose keys are all refused for every query of the q
-// tile (from the tile's position range: no valid key, all keys after the
-// last query, or all beyond the window) is skipped.  The second skip only
-// reads positions, so it is sound for any positions, a wrapped ring
-// included; it is what makes a left-padded prefill cost its prompt, not its
-// bucket.  Ragged S and T tails are masked in the kernel.
+// Prefill.  What bounds it on the H100: operations.  A prefill of S
+// queries against its own keys does ~4 S^2/2 Dh flops per head against
+// O(S Dh) bytes.  Both prefill kernels run one block per (q tile, head,
+// batch row) with a loop over k tiles inside the block in place of the
+// TPU's sequential k grid axis; GQA maps head h to kv head h / (H / Kv).
+// Work the mask refuses is skipped two ways: with k_index_aligned (slot j
+// holds position j, or positions are index-aligned up to a left-pad offset)
+// a causal q tile stops at its last row's index, as _flash_body's causal
+// block skip does; and every k tile whose keys are all refused for every
+// query of the q tile (from the tile's position range: no valid key, all
+// keys after the last query, or all beyond the window) is skipped.  The
+// second skip only reads positions, so it is sound for any positions, a
+// wrapped ring included; it is what makes a left-padded prefill cost its
+// prompt, not its bucket.  Ragged S and T tails are masked in the kernel.
+//
+// flash_wgmma_kernel (bfloat16, the serving path).  The products run on the
+// tensor cores (989 TFLOP/s bf16 against 67 on the float32 pipes):
+//   * S = Q K^T is wgmma.mma_async m64n{BK}k16 bf16 -> f32 with Q and K in
+//     128-byte-swizzled shared memory; each warpgroup owns 64 query rows
+//     (bq 64: one warpgroup, bq 128: two).  O += P V is wgmma m64n64k16
+//     with P converted to bf16 in registers (the accumulator's fragment is
+//     the A operand's register layout, so P never touches shared memory)
+//     and V read as the MN-major (transposed) B operand from the same
+//     swizzled layout as K.
+//   * The online softmax (row max, the correction, row sums) runs on the
+//     accumulator fragment in registers: a row lives in a quad of threads,
+//     its max takes two shuffles, its sum stays per thread until the end.
+//     exp is exp2f of the logit times scale * log2(e), folded into one
+//     multiply (within the bf16 tolerance; no fast-math flag).
+//   * Q is copied once, and K and V tiles go through a two-stage ring with
+//     cp.async (16 bytes a thread, zero-filled past T) written straight into
+//     the swizzled layout, so the next tile's copy overlaps this tile's
+//     products; strided views (the model's transposed q, k, v) are read in
+//     place, rows 16-byte aligned (the wrapper checks).
+//   * Before the loop, every warp takes k tiles, reads their positions and
+//     reduces min and max with warp reductions: dead tiles drop out of a
+//     compact list of live tiles (so the ring prefetches only live ones),
+//     and tiles where every (query, key) pair is admitted are marked and
+//     skip the per-element mask.  The q tile's position range is a warp
+//     reduction too.
+//   * q tiles run last-first (the grid's slowest axis), so a causal
+//     prefill's heaviest tiles start first.
+//   No atomics: the result is bit-for-bit repeatable.
+//
+// flash_kernel (float32, the conformance dtype, where ORACLE_TOL 2e-4 rules
+// out TF32 tensor cores): the float32 pipes.  The Q tile and the current K
+// (then V) tile sit in shared memory; each of the 256 threads computes a
+// (BQ/16) x (BK/16) piece of S = Q K^T from registers, keeps its rows'
+// running max and sum and a (BQ/16) x (Dh/16) piece of the accumulator, and
+// the probabilities go through shared memory into P.V.
 //
 // decode_split_kernel + decode_combine_kernel (decode).  What bounds it:
 // bytes.  One query per (row, head) reads every valid K/V row of the cache
@@ -52,6 +83,7 @@
 // bit-for-bit repeatable.
 
 #include <cuda_bf16.h>
+#include <stdint.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -107,7 +139,7 @@ __device__ __forceinline__ bool admitted(int qp, int kp, int causal,
 }
 
 // ---------------------------------------------------------------------------
-// prefill
+// prefill, float32 on the FMA pipes
 // ---------------------------------------------------------------------------
 struct FlashParams {
   const void* q;
@@ -129,7 +161,7 @@ constexpr int flash_smem_bytes() {
              4 + (16 * RI + 16 * CJ) * 4;
 }
 
-template <typename T, int DH, int RI, int CJ>
+template <int DH, int RI, int CJ>
 __global__ void __launch_bounds__(kFlashThreads)
     flash_kernel(const FlashParams p) {
   constexpr int BQ = 16 * RI, BK = 16 * CJ, DJ = DH / 16;
@@ -146,14 +178,17 @@ __global__ void __launch_bounds__(kFlashThreads)
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int nq = min(BQ, p.s - q0);
   const int kvh = h / (p.heads / p.kv_heads);
-  const T* q = static_cast<const T*>(p.q) + b * p.qs[0] + h * p.qs[1];
-  const T* k = static_cast<const T*>(p.k) + b * p.ks[0] + kvh * p.ks[1];
-  const T* v = static_cast<const T*>(p.v) + b * p.vs[0] + kvh * p.vs[1];
-  T* o = static_cast<T*>(p.o) + b * p.os[0] + h * p.os[1];
+  const float* q =
+      static_cast<const float*>(p.q) + b * p.qs[0] + h * p.qs[1];
+  const float* k =
+      static_cast<const float*>(p.k) + b * p.ks[0] + kvh * p.ks[1];
+  const float* v =
+      static_cast<const float*>(p.v) + b * p.vs[0] + kvh * p.vs[1];
+  float* o = static_cast<float*>(p.o) + b * p.os[0] + h * p.os[1];
 
   for (int i = tid; i < BQ * DH; i += kFlashThreads) {
     const int r = i / DH, d = i % DH;
-    qs[r * QLD + d] = r < nq ? to_float(q[(q0 + r) * p.qs[2] + d]) : 0.f;
+    qs[r * QLD + d] = r < nq ? q[(q0 + r) * p.qs[2] + d] : 0.f;
   }
   for (int r = tid; r < BQ; r += kFlashThreads)
     qp_s[r] = r < nq ? (p.q_pos ? p.q_pos[b * p.qps + q0 + r] : q0 + r) : -1;
@@ -202,7 +237,7 @@ __global__ void __launch_bounds__(kFlashThreads)
 
     for (int i = tid; i < BK * DH; i += kFlashThreads) {
       const int c = i / DH, d = i % DH;
-      kvs[c * QLD + d] = c < nk ? to_float(k[(k0 + c) * p.ks[2] + d]) : 0.f;
+      kvs[c * QLD + d] = c < nk ? k[(k0 + c) * p.ks[2] + d] : 0.f;
     }
     __syncthreads();
 
@@ -245,7 +280,7 @@ __global__ void __launch_bounds__(kFlashThreads)
       for (int j = 0; j < CJ; ++j) {
         const float pij = expf(sc[i][j] - m_new);  // refused: exp(-inf) = 0
         rs += pij;
-        ps[r * PLD + tx + 16 * j] = round_to<T>(pij);
+        ps[r * PLD + tx + 16 * j] = pij;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -259,7 +294,7 @@ __global__ void __launch_bounds__(kFlashThreads)
 
     for (int i = tid; i < BK * DH; i += kFlashThreads) {
       const int c = i / DH, d = i % DH;
-      kvs[c * QLD + d] = c < nk ? to_float(v[(k0 + c) * p.vs[2] + d]) : 0.f;
+      kvs[c * QLD + d] = c < nk ? v[(k0 + c) * p.vs[2] + d] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -285,45 +320,513 @@ __global__ void __launch_bounds__(kFlashThreads)
       const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
-        o[(q0 + r) * p.os[2] + tx + 16 * j] = from_float<T>(acc[i][j] / den);
+        o[(q0 + r) * p.os[2] + tx + 16 * j] = acc[i][j] / den;
     }
   }
 }
 
-template <typename T, int DH, int RI, int CJ>
+template <int DH, int RI, int CJ>
 int launch_flash(const FlashParams& p, int batch, cudaStream_t stream) {
   constexpr int smem = flash_smem_bytes<DH, RI, CJ>();
   static bool configured = false;  // once per instantiation and process
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, DH, RI, CJ>,
+        flash_kernel<DH, RI, CJ>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((p.s + 16 * RI - 1) / (16 * RI), p.heads, batch);
-  flash_kernel<T, DH, RI, CJ><<<grid, kFlashThreads, smem, stream>>>(p);
+  flash_kernel<DH, RI, CJ><<<grid, kFlashThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DH>
+template <int DH>
 int flash_tiles(const FlashParams& p, int batch, int bq, int bk,
                 cudaStream_t stream) {
-  if (bq == 64 && bk == 64) return launch_flash<T, DH, 4, 4>(p, batch, stream);
-  if (bq == 64 && bk == 32) return launch_flash<T, DH, 4, 2>(p, batch, stream);
-  if (bq == 32 && bk == 64) return launch_flash<T, DH, 2, 4>(p, batch, stream);
-  if (bq == 32 && bk == 32) return launch_flash<T, DH, 2, 2>(p, batch, stream);
+  if (bq == 64 && bk == 64) return launch_flash<DH, 4, 4>(p, batch, stream);
+  if (bq == 64 && bk == 32) return launch_flash<DH, 4, 2>(p, batch, stream);
+  if (bq == 32 && bk == 64) return launch_flash<DH, 2, 4>(p, batch, stream);
+  if (bq == 32 && bk == 32) return launch_flash<DH, 2, 2>(p, batch, stream);
   return -1;
 }
 
-template <typename T>
 int flash_dh(const FlashParams& p, int batch, int dh, int bq, int bk,
              cudaStream_t stream) {
   switch (dh) {
-    case 16: return flash_tiles<T, 16>(p, batch, bq, bk, stream);
-    case 32: return flash_tiles<T, 32>(p, batch, bq, bk, stream);
-    case 64: return flash_tiles<T, 64>(p, batch, bq, bk, stream);
-    case 128: return flash_tiles<T, 128>(p, batch, bq, bk, stream);
+    case 16: return flash_tiles<16>(p, batch, bq, bk, stream);
+    case 32: return flash_tiles<32>(p, batch, bq, bk, stream);
+    case 64: return flash_tiles<64>(p, batch, bq, bk, stream);
+    case 128: return flash_tiles<128>(p, batch, bq, bk, stream);
+    default: return -1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// prefill, bfloat16: wgmma on the tensor cores, a cp.async K/V ring
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// this thread's finished cp.async writes, made visible to wgmma's reads
+// (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving an accumulator's reads or writes across
+// an asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma's shared-memory descriptor of a 128-byte-swizzled operand: the
+// start address, then both byte offsets 1024 (the next 8 rows along K;
+// no product spans two 64-element blocks along the other dimension, so
+// that offset is never read), then the swizzle mode
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo: low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D (64 x 64, float32) (+)= A (64 x 16, shared) . B (64 x 16, shared)^T
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 128, float32) (+)= A (64 x 16, shared) . B (128 x 16, shared)^T
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 64, float32) += A (64 x 16, registers) . B (16 x 64, shared,
+// MN-major: tnspB = 1)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The bf16 kernel's shared memory.  A tile of R rows of Dh bf16 is stored
+// as max(1, Dh / 64) blocks of R rows x 128 bytes (64 elements; a narrower
+// head fills the front of each row), the 16-byte chunk c of row r at chunk
+// c ^ (r % 8): the 128-byte swizzle, read by wgmma without bank conflicts.
+// Q, K and V tiles share the layout (V is read as the MN-major operand).
+template <int DH, int BQ, int BK>
+struct WgTile {
+  static constexpr int NB = DH < 64 ? 1 : DH / 64;  // 64-element blocks
+  static constexpr int THREADS = 2 * BQ;           // a warpgroup a 64 rows
+  static constexpr int Q_BYTES = BQ * 128 * NB;
+  static constexpr int KV_BYTES = BK * 128 * NB;   // one K or V tile
+  static constexpr int STAGES = 2;                 // the K/V ring
+  // alignment slack, Q, the ring's K and V tiles and key positions, then
+  // four ints (the q tile's position range, the live-tile count); the
+  // live-tile list follows, one int a k tile
+  static constexpr int FIXED =
+      1024 + Q_BYTES + STAGES * (2 * KV_BYTES + BK * 4) + 16;
+};
+
+// rows [row0, row0 + R) of a (rows, DH) bf16 view with row stride `ld`
+// into the swizzled layout at `dst`, asynchronously; rows from `n` on are
+// zero-filled
+template <int DH, int R, int THREADS>
+__device__ __forceinline__ void load_tile_async(uint32_t dst,
+                                                const __nv_bfloat16* src,
+                                                long long ld, int row0, int n,
+                                                int tid) {
+  constexpr int CHUNKS = DH / 8;
+#pragma unroll
+  for (int i = tid; i < R * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS;
+    const bool ok = r < n;
+    const __nv_bfloat16* g = ok ? src + (row0 + r) * ld + c * 8 : src;
+    cp_async16(dst + (c / 8) * (R * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4),
+               g, ok);
+  }
+}
+
+template <int DH, int BQ, int BK>
+__global__ void __launch_bounds__(2 * BQ, 1)
+    flash_wgmma_kernel(const FlashParams p) {
+  using L = WgTile<DH, BQ, BK>;
+  constexpr int NS = BK / 2;   // S accumulator floats a thread (64 x BK)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t q_s = smem_u32(smem);
+  const uint32_t kv_s = q_s + L::Q_BYTES;  // stage st: K, then V
+  int* kp_s = reinterpret_cast<int*>(smem + L::Q_BYTES +
+                                     L::STAGES * 2 * L::KV_BYTES);
+  int* info = kp_s + L::STAGES * BK;
+  int* tiles = info + 4;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  // q tiles last-first: a causal prefill's heaviest tiles start first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int nq = min(BQ, p.s - q0);
+  const int kvh = h / (p.heads / p.kv_heads);
+  using bf16 = __nv_bfloat16;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qs[0] + h * p.qs[1];
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ks[0] + kvh * p.ks[1];
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.vs[0] + kvh * p.vs[1];
+  bf16* o = static_cast<bf16*>(p.o) + b * p.os[0] + h * p.os[1];
+  auto q_pos = [&](int r) {  // r < nq
+    return p.q_pos ? p.q_pos[b * p.qps + q0 + r] : q0 + r;
+  };
+  auto k_pos = [&](int j) {
+    return j < p.t ? (p.k_pos ? p.k_pos[b * p.kps + j] : j) : -1;
+  };
+
+  load_tile_async<DH, BQ, L::THREADS>(q_s, q, p.qs[2], q0, nq, tid);
+  cp_async_commit();
+
+  // the q tile's position range (rows past S excluded)
+  if (warp == 0) {
+    int lo = 0x7fffffff, hi = -0x7fffffff;
+    for (int r = lane; r < nq; r += 32) {
+      const int qp = q_pos(r);
+      lo = min(lo, qp);
+      hi = max(hi, qp);
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (lane == 0) {
+      info[0] = lo;
+      info[1] = hi;
+    }
+  }
+  __syncthreads();
+  const int q_lo = info[0], q_hi = info[1];
+  // each k tile's position range, a warp a tile: 0 dead, 1 live, 2 every
+  // pair admitted
+  const int n_k = (p.t + BK - 1) / BK;
+  const int kt_end =  // the reference's causal block skip
+      (p.causal && p.aligned) ? min(n_k, (q0 + BQ - 1) / BK + 1) : n_k;
+  for (int kt = warp; kt < kt_end; kt += L::THREADS / 32) {
+    int lo = 0x7fffffff, hi = -1, pad = 0;
+    for (int c = lane; c < BK; c += 32) {
+      const int kp = k_pos(kt * BK + c);
+      if (kp >= 0) {
+        lo = min(lo, kp);
+        hi = max(hi, kp);
+      } else {
+        pad = 1;
+      }
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    pad = __any_sync(0xffffffffu, pad);
+    if (lane == 0) {
+      const bool live = hi >= 0 && (!p.causal || lo <= q_hi) &&
+                        (p.window == 0 || hi > q_lo - p.window);
+      const bool full = !pad && (!p.causal || hi <= q_lo) &&
+                        (p.window == 0 || q_hi - lo < p.window);
+      tiles[kt] = live ? 1 + full : 0;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {  // the live tiles in order, as index << 1 | full
+    int count = 0;
+    for (int base = 0; base < kt_end; base += 32) {
+      const int kt = base + lane;
+      const int f = kt < kt_end ? tiles[kt] : 0;
+      const unsigned live = __ballot_sync(0xffffffffu, f != 0);
+      if (f) tiles[count + __popc(live & ((1u << lane) - 1))] = kt << 1 | (f == 2);
+      count += __popc(live);
+    }
+    if (lane == 0) info[2] = count;
+  }
+  __syncthreads();
+  const int n_live = info[2];
+
+  auto issue = [&](int stage, int kt) {  // one k tile into the ring
+    const int k0 = kt * BK, nk = min(BK, p.t - k0);
+    const uint32_t ks = kv_s + stage * 2 * L::KV_BYTES;
+    load_tile_async<DH, BK, L::THREADS>(ks, k, p.ks[2], k0, nk, tid);
+    load_tile_async<DH, BK, L::THREADS>(ks + L::KV_BYTES, v, p.vs[2], k0, nk,
+                                        tid);
+    for (int c = tid; c < BK; c += L::THREADS)
+      kp_s[stage * BK + c] = k_pos(k0 + c);
+    cp_async_commit();
+  };
+
+  // this thread's two rows of its warpgroup's 64 and its quad lane
+  const int wg = tid / 128, tq = lane % 4;
+  const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4, r1 = r0 + 8;
+  const int qp0 = r0 < nq ? q_pos(r0) : -1, qp1 = r1 < nq ? q_pos(r1) : -1;
+  const float sl2 = p.scale * 1.4426950408889634f;  // scale * log2(e)
+  const uint32_t qa = q_s + wg * 64 * 128;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float acc[L::NB][32];
+#pragma unroll
+  for (int nb = 0; nb < L::NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+  float s[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = 0.f;
+
+  if (n_live > 0) issue(0, tiles[0] >> 1);
+  for (int it = 0; it < n_live; ++it) {
+    const int st = it & 1, entry = tiles[it];
+    if (it + 1 < n_live) {  // the next live tile's copy overlaps this one
+      issue(st ^ 1, tiles[it + 1] >> 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const uint32_t ks = kv_s + st * 2 * L::KV_BYTES, vs = ks + L::KV_BYTES;
+
+    // S = Q K^T: Dh / 16 products of 64 x BK x 16
+    fence_regs<NS>(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint64_t da =
+          sw128_desc(qa + (kk / 4) * (BQ * 128) + (kk % 4) * 32);
+      const uint64_t db =
+          sw128_desc(ks + (kk / 4) * (BK * 128) + (kk % 4) * 32);
+      if constexpr (BK == 64) {
+        wgmma_ss_n64(s, da, db, kk > 0);
+      } else {
+        wgmma_ss_n128(s, da, db, kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs<NS>(s);
+
+    // the mask (only where a pair may be refused), then the online softmax
+    // in log2 units; s[4j + e] is row r0 and s[4j + 2 + e] row r1, key
+    // 8j + 2 tq + e
+    const int* kp = kp_s + st * BK;
+    float mt0 = -CUDART_INF_F, mt1 = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x0 = s[4 * j + e] * sl2, x1 = s[4 * j + 2 + e] * sl2;
+        if (!(entry & 1)) {
+          const int kpos = kp[8 * j + 2 * tq + e];
+          if (!admitted(qp0, kpos, p.causal, p.window)) x0 = -CUDART_INF_F;
+          if (!admitted(qp1, kpos, p.causal, p.window)) x1 = -CUDART_INF_F;
+        }
+        s[4 * j + e] = x0;
+        s[4 * j + 2 + e] = x1;
+        mt0 = fmaxf(mt0, x0);
+        mt1 = fmaxf(mt1, x1);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, off));
+      mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, off));
+    }
+    const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
+    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    // P in bf16 as wgmma's A fragments: key step kk takes the accumulator's
+    // columns 16 kk .. 16 kk + 15, which are already in the A layout
+    uint32_t pa[BK / 16][4];
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float e00 = exp2f(s[4 * j] - mn0), e01 = exp2f(s[4 * j + 1] - mn0);
+      const float e10 = exp2f(s[4 * j + 2] - mn1),
+                  e11 = exp2f(s[4 * j + 3] - mn1);  // refused: exp2(-inf) = 0
+      rs0 += e00 + e01;
+      rs1 += e10 + e11;
+      pa[j / 2][(j % 2) * 2] = pack_bf16(e00, e01);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(e10, e11);
+    }
+    l0 = l0 * c0 + rs0;  // this thread's share of the row sums, unrounded
+    l1 = l1 * c1 + rs1;
+#pragma unroll
+    for (int nb = 0; nb < L::NB; ++nb) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[nb][4 * j] *= c0;
+        acc[nb][4 * j + 1] *= c0;
+        acc[nb][4 * j + 2] *= c1;
+        acc[nb][4 * j + 3] *= c1;
+      }
+      fence_regs<32>(acc[nb]);
+    }
+
+    // O += P V: per 16 keys and 64 columns of Dh, one 64 x 64 x 16 product
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < L::NB; ++nb)
+        wgmma_rs_n64(acc[nb], pa[kk],
+                     sw128_desc(vs + nb * (BK * 128) + kk * 2048));
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int nb = 0; nb < L::NB; ++nb) fence_regs<32>(acc[nb]);
+    __syncthreads();  // every warpgroup is done with this stage
+  }
+  cp_async_wait<0>();  // the Q copy, when no tile was live
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int nb = 0; nb < L::NB; ++nb) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = nb * 64 + 8 * j + 2 * tq;
+      if (col < DH) {
+        if (r0 < nq)
+          *reinterpret_cast<uint32_t*>(o + (q0 + r0) * p.os[2] + col) =
+              pack_bf16(acc[nb][4 * j] / d0, acc[nb][4 * j + 1] / d0);
+        if (r1 < nq)
+          *reinterpret_cast<uint32_t*>(o + (q0 + r1) * p.os[2] + col) =
+              pack_bf16(acc[nb][4 * j + 2] / d1, acc[nb][4 * j + 3] / d1);
+      }
+    }
+  }
+}
+
+template <int DH, int BQ, int BK>
+int launch_flash_wgmma(const FlashParams& p, int batch, cudaStream_t stream) {
+  using L = WgTile<DH, BQ, BK>;
+  const int smem = L::FIXED + 4 * ((p.t + BK - 1) / BK);
+  static int configured = 0;  // the most asked for so far, per process
+  if (smem > configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_wgmma_kernel<DH, BQ, BK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = smem;
+  }
+  const dim3 grid(p.heads, batch, (p.s + BQ - 1) / BQ);
+  flash_wgmma_kernel<DH, BQ, BK><<<grid, L::THREADS, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int flash_wgmma_tiles(const FlashParams& p, int batch, int bq, int bk,
+                      cudaStream_t stream) {
+  if (bq == 128 && bk == 128)
+    return launch_flash_wgmma<DH, 128, 128>(p, batch, stream);
+  if (bq == 128 && bk == 64)
+    return launch_flash_wgmma<DH, 128, 64>(p, batch, stream);
+  if (bq == 64 && bk == 128)
+    return launch_flash_wgmma<DH, 64, 128>(p, batch, stream);
+  if (bq == 64 && bk == 64)
+    return launch_flash_wgmma<DH, 64, 64>(p, batch, stream);
+  return -1;
+}
+
+int flash_wgmma_dh(const FlashParams& p, int batch, int dh, int bq, int bk,
+                   cudaStream_t stream) {
+  switch (dh) {
+    case 16: return flash_wgmma_tiles<16>(p, batch, bq, bk, stream);
+    case 32: return flash_wgmma_tiles<32>(p, batch, bq, bk, stream);
+    case 64: return flash_wgmma_tiles<64>(p, batch, bq, bk, stream);
+    case 128: return flash_wgmma_tiles<128>(p, batch, bq, bk, stream);
     default: return -1;
   }
 }
@@ -564,8 +1067,8 @@ extern "C" int flash_attention_fwd(
   p.heads = heads; p.kv_heads = kv_heads; p.s = s; p.t = t;
   p.causal = causal; p.window = window; p.aligned = aligned;
   p.scale = scale;
-  if (dtype == 0) return flash_dh<float>(p, batch, dh, bq, bk, stream);
-  if (dtype == 1) return flash_dh<__nv_bfloat16>(p, batch, dh, bq, bk, stream);
+  if (dtype == 0) return flash_dh(p, batch, dh, bq, bk, stream);
+  if (dtype == 1) return flash_wgmma_dh(p, batch, dh, bq, bk, stream);
   return -1;
 }
 

@@ -26,7 +26,9 @@ V_STD = 1.0
 
 #: prefill sweep: (positions mode, B, H, Kv, S, T, causal, window) — ragged
 #: S/T, GQA 4:1 and 1:1, a window, left pads into a longer fresh cache,
-#: self-attention of a left-padded batch, a wrapped ring
+#: self-attention of a left-padded batch, a wrapped ring, and a long
+#: left-padded prompt whose live k tiles (6 to 22 of 128 to 32 keys) go
+#: several times round the bf16 kernel's two-stage K/V ring
 FLASH_SWEEP = (
     ("index", 2, 8, 2, 100, 100, True, 0),
     ("index", 1, 4, 4, 70, 150, False, 0),
@@ -34,6 +36,7 @@ FLASH_SWEEP = (
     ("leftpad", 2, 8, 2, 96, 200, True, 0),
     ("self", 2, 4, 2, 90, 90, True, 0),
     ("ring", 1, 4, 1, 90, 40, True, 0),
+    ("leftpad", 1, 8, 2, 700, 1100, True, 0),
 )
 
 #: decode sweep: (B, H, Kv, T, wrap, per-row fill or None, window) — empty

@@ -4,7 +4,9 @@
 kernel.py::flash_attention`` and ``decode`` replaces ``::decode_attention``;
 the note at the top of the CUDA source says what bounds each on the H100
 and what its design does about it.  Both take float32 or bfloat16 (q, k
-and v of one dtype), accumulate in float32 and return q's dtype.
+and v of one dtype), accumulate in float32 and return q's dtype.  ``flash``
+has one kernel a dtype: bfloat16 (the model's) on the tensor cores
+(wgmma), float32 (the conformance dtype) on the FMA pipes.
 
 The kernels are compiled by ``nvcc`` at the first launch
 (``repro_torch._build``) and called through ``ctypes`` on PyTorch's current
@@ -27,19 +29,24 @@ from repro_torch import _build
 from repro_torch.kernels.flash_attention import ref
 
 #: declared tunables of the ``cuda`` backends (ops.py registers them): the
-#: prefill's q and k tile rows (each pair has its own instantiation) and the
-#: cache slots a decode block takes
-BQ_GRID = (32, 64)
-BK_GRID = (32, 64)
+#: prefill's q and k tile rows and the cache slots a decode block takes.
+#: Each prefill dtype has its own kernel, instantiated for its own tiles
+#: (``tiles_fit`` is the registry's constraint): float32 the FMA kernel at
+#: 32 or 64 rows, bfloat16 the wgmma kernel at 64 or 128 (a warpgroup's 64
+#: query rows, or two warpgroups; wgmma's N for the keys)
+FLASH_TILES = {torch.float32: (32, 64), torch.bfloat16: (64, 128)}
+BQ_GRID = BK_GRID = (32, 64, 128)
 BKV_GRID = (64, 128, 256, 512)
-# 64 x 64 tiles give each of 256 threads a 4 x 4 piece of S (16 FMAs per
-# 8 shared-memory loads) in 83 KB of shared memory at Dh 128, two blocks
-# an SM; 128-slot decode chunks make 32 splits of a 4096-slot cache, 2048
-# blocks at 8 rows x 8 kv heads.  Both are the fastest points of their
-# grids at granite-3-8b's serving shapes on an H100 SXM (700 W): prefill
-# 1.60 ms against 1.79-2.52 ms, decode 0.044 ms against 0.051 (64), 0.059
-# (256) and 0.089 ms (512), timed as CUDA graphs by chip_smoke.py
-BQ, BK, BKV = 64, 64, 128
+# Defaults, each the fastest point of its grid at granite-3-8b's serving
+# shapes on an H100 SXM (700 W), timed as CUDA graphs by chip_smoke.py:
+# bfloat16 prefill 128 x 128, two warpgroups a block (0.139 ms against
+# 0.158 (128 x 64), 0.158 (64 x 64) and 0.224 ms (64 x 128)); float32
+# prefill 64 x 64 (1.60 ms against 1.79-2.52 ms, timed in bf16 when bf16
+# ran the FMA kernel too); decode 128-slot chunks, 32 splits of a
+# 4096-slot cache, 2048 blocks at 8 rows x 8 kv heads (0.044 ms against
+# 0.051 (64), 0.059 (256) and 0.089 ms (512))
+FLASH_DEFAULT = {torch.float32: (64, 64), torch.bfloat16: (128, 128)}
+BKV = 128
 HEAD_DIMS = (16, 32, 64, 128)
 #: query heads per kv head the decode kernel holds (its register tile)
 MAX_GROUP = 8
@@ -93,6 +100,19 @@ def _check_kernel_inputs(name: str, q, k, v, dh: int) -> None:
                          f"dimension is contiguous")
 
 
+def tiles_fit(point, q, *args, **kwargs) -> bool:
+    """The flash tunables' constraint: the tiles q's dtype is built for."""
+    allowed = FLASH_TILES.get(q.dtype, ())
+    return point["bq"] in allowed and point["bk"] in allowed
+
+
+def _aligned16(tensors: Sequence[torch.Tensor]) -> bool:
+    """Base and dims 0-2 strides 16-byte aligned: rows read 16 bytes at a
+    time."""
+    return not any(x.data_ptr() % 16 or any(
+        st * x.element_size() % 16 for st in x.stride()[:3]) for x in tensors)
+
+
 def _positions(pos: torch.Tensor) -> torch.Tensor:
     return pos.to(torch.int32).contiguous()
 
@@ -100,8 +120,9 @@ def _positions(pos: torch.Tensor) -> torch.Tensor:
 def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           q_pos: Optional[torch.Tensor] = None,
           k_pos: Optional[torch.Tensor] = None, *, causal: bool = True,
-          window: int = 0, k_index_aligned: bool = True, bq: int = BQ,
-          bk: int = BK) -> torch.Tensor:
+          window: int = 0, k_index_aligned: bool = True,
+          bq: Optional[int] = None, bk: Optional[int] = None
+          ) -> torch.Tensor:
     """q (B, H, S, Dh), k/v (B, Kv, T, Dh) -> (B, H, S, Dh).
 
     Any strides with a contiguous last dimension (the model passes
@@ -112,6 +133,9 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     j or -1, or that positions are index-aligned up to a left-pad offset:
     then a causal q tile skips the k tiles after its last row.  Tiles whose
     keys the mask refuses for every query are skipped either way.
+    ``bq``/``bk`` default to ``FLASH_DEFAULT`` of q's dtype.  bfloat16 runs
+    the tensor-core kernel, which copies rows 16 bytes at a time: q, k and
+    v need 16-byte aligned bases and row, head and batch strides.
     """
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash takes q (B, H, S, Dh) and k, v (B, Kv, T, "
@@ -134,9 +158,15 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_ref(q, k, v, q_pos, k_pos, causal=causal,
                              window=window)
     _check_kernel_inputs("flash", q, k, v, dh)
-    if bq not in BQ_GRID or bk not in BK_GRID:
-        raise ValueError(f"bad tiles bq={bq} bk={bk}: bq in {BQ_GRID}, bk "
-                         f"in {BK_GRID}")
+    bq = FLASH_DEFAULT[q.dtype][0] if bq is None else bq
+    bk = FLASH_DEFAULT[q.dtype][1] if bk is None else bk
+    if not tiles_fit({"bq": bq, "bk": bk}, q):
+        raise ValueError(f"bad tiles bq={bq} bk={bk} for {q.dtype}: each "
+                         f"in {FLASH_TILES[q.dtype]}")
+    if q.dtype == torch.bfloat16 and not _aligned16((q, k, v)):
+        raise ValueError("the bfloat16 flash kernel copies q, k and v rows "
+                         "16 bytes at a time: their base and strides must "
+                         "be 16-byte aligned")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -195,9 +225,7 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"bad bkv={bkv}: one of {BKV_GRID}")
     if not q.is_contiguous():
         raise ValueError("the decode kernel takes a contiguous q")
-    vec = 16 // q.element_size()   # elements in the kernel's 16-byte loads
-    if any(x.data_ptr() % 16 or any(st % vec for st in x.stride()[:3])
-           for x in (k, v)):
+    if not _aligned16((k, v)):
         raise ValueError("the decode kernel reads k and v rows 16 bytes at a "
                          "time: their base and strides must be 16-byte "
                          "aligned")

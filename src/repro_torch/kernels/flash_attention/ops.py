@@ -11,8 +11,8 @@ Backends: ``torch`` (the oracle, ``ref.py``) and ``cuda`` (the CUDA C++
 kernels behind ``kernel.flash`` / ``kernel.decode``, the default for CUDA
 tensors).  The flops models are the reference's
 (``repro/kernels/flash_attention/ops.py``), so GFLOP/s compare across the
-two packages; the least work a call needs (the pairs its mask admits) is
-counted from its positions by ``chip_smoke.py``.
+two packages; ``least_flops`` counts the least work a prefill needs, the
+pairs its mask admits, for the bound.
 """
 
 from __future__ import annotations
@@ -20,6 +20,18 @@ from __future__ import annotations
 from repro_torch.core.portable import cuda_probe, register_kernel
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref
+
+
+def least_flops(q_pos, k_pos, heads: int, dh: int, causal: bool = True,
+                window: int = 0) -> float:
+    """The fewest flops a prefill needs: 4 Dh (QK^T and PV) for every
+    (query, key) pair its mask admits, over the batch and ``heads`` query
+    heads.  ``q_pos`` (B, S) and ``k_pos`` (B, T) as ``flash`` takes them
+    (index mode: ``arange``); unlike the reference's model, the causal
+    diagonal is counted and pads, empty slots and refused tiles are not."""
+    mask = ref.admitted(q_pos, k_pos, causal=causal, window=window)
+    pairs = mask.expand(*q_pos.shape, k_pos.shape[1]).sum()
+    return 4.0 * dh * heads * float(pairs)
 
 
 def _flops_model(q, k, v, *pos, causal=True, **kw):
@@ -37,11 +49,14 @@ def _decode_flops_model(q, k, v, *pos, **kw):
 _k = register_kernel("attention.flash", native="cuda",
                      flops_model=_flops_model,
                      doc="flash attention (causal/windowed GQA), "
-                         "online-softmax CUDA C++ kernel")
+                         "online-softmax CUDA C++ kernels: wgmma "
+                         "tensor cores for bf16, FMA for float32")
 _k.add_backend("torch", ref.flash_ref)
 _k.add_backend("cuda", K.flash, probe=cuda_probe)
-# ragged S and T are masked in the kernel, so every tile pair is valid
-_k.declare_tunables("cuda", bq=K.BQ_GRID, bk=K.BK_GRID)
+# ragged S and T are masked in the kernel; each dtype's kernel is built for
+# its own tiles
+_k.declare_tunables("cuda", bq=K.BQ_GRID, bk=K.BK_GRID,
+                    constraint=K.tiles_fit)
 
 _kd = register_kernel("attention.decode", native="cuda",
                       flops_model=_decode_flops_model,

@@ -22,6 +22,7 @@ from repro_torch.core import conformance, get_kernel
 from repro_torch.core.portable import BackendUnavailableError
 from repro_torch.kernels.flash_attention import cases
 from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.models import attention as A
 
@@ -165,12 +166,47 @@ def test_flops_models_equal_the_reference():
 
 
 def test_tunables_declared():
-    assert get_kernel("attention.flash").tunable_space("cuda").params == \
-        {"bq": (32, 64), "bk": (32, 64)}
+    space = get_kernel("attention.flash").tunable_space("cuda")
+    assert space.params == {"bq": (32, 64, 128), "bk": (32, 64, 128)}
+    # each dtype sweeps the tiles its kernel is instantiated for
+    for dtype, tiles in ((torch.float32, (32, 64)),
+                         (torch.bfloat16, (64, 128))):
+        q = torch.zeros(1, 1, 1, 16, dtype=dtype)
+        assert space.valid_points(q, q, q) == [
+            {"bq": bq, "bk": bk} for bq in tiles for bk in tiles]
+        assert K.FLASH_DEFAULT[dtype][0] in tiles
+        assert K.FLASH_DEFAULT[dtype][1] in tiles
     assert get_kernel("attention.decode").tunable_space("cuda").params == \
         {"bkv": (64, 128, 256, 512)}
     assert get_kernel("attention.decode").roofline_contract("cuda") == \
         {"bound": "memory"}
+
+
+@pytest.mark.parametrize("case", cases.FLASH_SWEEP,
+                         ids=lambda c: f"{c[0]}-{c[4]}x{c[5]}-w{c[7]}")
+def test_least_flops_counts_the_admitted_pairs(case):
+    mode, b, h, kv, s, t, causal, window = case
+    qp, kp, _ = cases.flash_positions(mode, b, s, t)
+    pairs = sum(
+        1 for row in range(b) for i in range(s) for j in range(t)
+        if kp[row, j] >= 0 and (not causal or kp[row, j] <= qp[row, i])
+        and (not window or qp[row, i] - kp[row, j] < window))
+    got = fa_ops.least_flops(torch.from_numpy(qp), torch.from_numpy(kp), h,
+                             64, causal=causal, window=window)
+    assert got == 4.0 * 64 * h * pairs
+
+
+@pytest.mark.parametrize("b,h,s,dh", [(2, 8, 100, 64), (1, 32, 130, 128)])
+def test_least_flops_exceeds_the_reference_model_by_the_diagonal(b, h, s,
+                                                                 dh):
+    # causal index mode, S = T: the reference's model halves the square;
+    # the admitted pairs are S (S + 1) / 2 a row, the diagonal included
+    pos = torch.arange(s, dtype=torch.int32).expand(b, s)
+    q = torch.zeros(b, h, s, dh)
+    k = torch.zeros(b, 2, s, dh)
+    ours = fa_ops.least_flops(pos, pos, h, dh, causal=True)
+    theirs = get_kernel("attention.flash").flops_model(q, k, k, causal=True)
+    assert ours - theirs == 4.0 * b * h * dh * s / 2
 
 
 # ---- the on-card checks' data can see a dropped tile ---------------------
@@ -194,10 +230,12 @@ def _serving(name):
 
 
 def test_flash_serving_check_sees_a_dropped_k_tile():
-    """The plain prefill without any one k tile of the smallest declared
-    size lies outside the bf16 tolerance on the last 64 queries of the
-    serving case: a kernel that skipped a tile fails the on-card check."""
-    (q, k, v, qp, kp), (length,), bk = _serving("attention.flash")
+    """The plain prefill without any one block of 16 keys lies outside the
+    bf16 tolerance on the last 64 queries of the serving case: a kernel
+    that lost a k tile, or one k step of its P.V product (wgmma takes 16
+    keys a step), fails the on-card check."""
+    (q, k, v, qp, kp), (length,), _ = _serving("attention.flash")
+    bk = 16
     q, qp = q[:, :, -64:], qp[:, -64:]
     want = ref.flash_ref(q, k, v, qp, kp, causal=True)
     live = torch.ones(q.shape[:3], dtype=torch.bool)

@@ -254,23 +254,35 @@ def test_quickstart_path(cuda):
 
 
 # ---- attention ---------------------------------------------------------------
+def _flash_case(case, dh, dtype, device, rng):
+    """One ``FLASH_SWEEP`` case in the model's layout, seen through
+    transposed views: (q, k, v, positions or (None, None), k_index_aligned,
+    q_pos, k_pos)."""
+    mode, b, h, kv, s, t, _, _ = case
+    q, k, v = (x.transpose(1, 2) for x in attn_cases.draw(
+        rng, (b, s, h, dh), (b, t, kv, dh), dtype, device))
+    qp, kp, aligned = attn_cases.flash_positions(mode, b, s, t)
+    qp, kp = torch.tensor(qp, device=device), torch.tensor(kp, device=device)
+    pos = (None, None) if mode == "index" else (qp, kp)
+    return q, k, v, pos, aligned, qp, kp
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
 def test_flash_kernel_matches_plain(cuda, dtype, dh):
     space = get_kernel("attention.flash").tunable_space("cuda")
     rng = np.random.default_rng(dh)
-    for case, b, h, kv, s, t, causal, window in attn_cases.FLASH_SWEEP:
-        # the model's layout, seen through transposed views
-        q, k, v = (x.transpose(1, 2) for x in attn_cases.draw(
-            rng, (b, s, h, dh), (b, t, kv, dh), dtype, cuda))
-        qp, kp, aligned = attn_cases.flash_positions(case, b, s, t)
-        qp, kp = torch.tensor(qp, device=cuda), torch.tensor(kp, device=cuda)
-        pos = (None, None) if case == "index" else (qp, kp)
+    for case in attn_cases.FLASH_SWEEP:
+        mode, b, h, kv, s, t, causal, window = case
+        q, k, v, pos, aligned, qp, kp = _flash_case(case, dh, dtype, cuda,
+                                                    rng)
         want = attn_ref.flash_ref(q, k, v, *pos, causal=causal,
                                   window=window)
         live = attn_ref.admitted(qp, kp, causal=causal, window=window).any(-1)
         live = live[:, None, :].expand(b, h, s)
-        for p in space.points():
+        points = space.valid_points(q, k, v, *pos)
+        assert len(points) == 4
+        for p in points:
             before = attn_kernel.flash.launches
             got = attn_kernel.flash(q, k, v, *pos, causal=causal,
                                     window=window, k_index_aligned=aligned,
@@ -279,7 +291,42 @@ def test_flash_kernel_matches_plain(cuda, dtype, dh):
             assert attn_kernel.flash.launches == before + 1
             assert got.dtype == dtype and got.stride() == q.stride()
             attn_cases.hold_live(got, want, live, *ATTN_TOL[dtype],
-                                 f"{case} S={s} T={t} {p}")
+                                 f"{mode} S={s} T={t} {p}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_is_deterministic(cuda, dtype):
+    """No atomics: five repeats of every tile point on the long left-padded
+    case are bit-identical."""
+    case = attn_cases.FLASH_SWEEP[-1]
+    q, k, v, pos, aligned, _, _ = _flash_case(case, 128, dtype, cuda,
+                                              np.random.default_rng(7))
+    space = get_kernel("attention.flash").tunable_space("cuda")
+    for p in space.valid_points(q, k, v, *pos):
+        first = attn_kernel.flash(q, k, v, *pos, k_index_aligned=aligned, **p)
+        for _ in range(5):
+            assert torch.equal(first, attn_kernel.flash(
+                q, k, v, *pos, k_index_aligned=aligned, **p))
+
+
+def test_flash_bf16_rejects_misaligned_views(cuda):
+    """The bf16 kernel copies rows 16 bytes at a time: a view whose base or
+    row stride is not 16-byte aligned raises, as do the float32 tiles."""
+    q, k, v, pos, _, _, _ = _flash_case(attn_cases.FLASH_SWEEP[0], 64,
+                                        torch.bfloat16, cuda,
+                                        np.random.default_rng(0))
+    attn_kernel.flash(q, k, v)          # the aligned views run
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype,
+                          device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        attn_kernel.flash(shifted, k, v)
+    b, kv, t, dh = k.shape
+    wide = torch.zeros(b, t, kv, dh + 4, dtype=k.dtype, device=cuda)
+    odd = wide[..., :dh].transpose(1, 2)   # rows 136 bytes apart
+    with pytest.raises(ValueError, match="16-byte"):
+        attn_kernel.flash(q, odd, v)
+    with pytest.raises(ValueError, match="tiles"):
+        attn_kernel.flash(q, k, v, bq=32)
 
 
 def _decode_case(b, h, kv, t, dh, dtype, device, wrap=0, fill=None, seed=0):
