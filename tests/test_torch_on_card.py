@@ -150,41 +150,81 @@ def test_minibude_kernel_matches_plain(cuda):
 
 
 def test_hartree_fock_kernel_matches_plain(cuda):
+    """Every tunable point at N 8, 12, 16 and 36 (666 canonical pairs at
+    36: no multiple of the tile edge), STO-3G and STO-6G; then slab
+    covers whose edges fall inside a pair tile, each slab against its plain
+    slab and each cover summing to the full build."""
     space = get_kernel("hartree_fock.twoel").tunable_space("cuda")
-    for n, ngauss in ((8, 3), (12, 6), (16, 3)):
-        pos = hf_ref.helium_lattice(n, device=cuda)
-        dens = hf_ref.initial_density(n, device=cuda)
-        basis = hf_ref.sto_basis(ngauss, device=cuda)
-        pos4 = hf_kernel.pad4(pos)
-        want = hf_ref.fock_build(pos, dens, basis)
-        for p in space.points():
-            before = hf_kernel.twoel.launches
-            got = hf_kernel.twoel(pos4, dens, basis, **p)
-            torch.cuda.synchronize()
-            assert hf_kernel.twoel.launches == before + 1
-            torch.testing.assert_close(got, want, rtol=HF_RTOL, atol=HF_ATOL)
-        # a cover by uneven slabs sums to the full build
-        total = torch.zeros_like(want)
-        for l0, nl in ((0, 1), (1, n // 2 - 1), (n // 2, n // 2)):
-            before = hf_kernel.twoel_slab.launches
-            part = hf_kernel.twoel_slab(pos4, dens, basis, l0, nl)
-            assert hf_kernel.twoel_slab.launches == before + 1
-            torch.testing.assert_close(
-                part, hf_ref.fock_build_slab(pos, dens, basis, l0, nl),
-                rtol=HF_RTOL, atol=HF_ATOL)
-            total += part
-        torch.testing.assert_close(total, want, rtol=HF_RTOL, atol=HF_ATOL)
+    for n in (8, 12, 16, 36):
+        for ngauss in (3, 6):
+            pos = hf_ref.helium_lattice(n, device=cuda)
+            dens = hf_ref.initial_density(n, device=cuda)
+            basis = hf_ref.sto_basis(ngauss, device=cuda)
+            pos4 = hf_kernel.pad4(pos)
+            want = hf_ref.fock_build(pos, dens, basis)
+            for p in space.points():
+                before = hf_kernel.twoel.launches
+                got = hf_kernel.twoel(pos4, dens, basis, **p)
+                torch.cuda.synchronize()
+                assert hf_kernel.twoel.launches == before + 1
+                torch.testing.assert_close(got, want, rtol=HF_RTOL,
+                                           atol=HF_ATOL)
+            # uneven covers, their slab pairs no multiple of a tile edge
+            # (3 n - 3 pairs for a slab of 3 atoms): the ket tiles' last is
+            # part full
+            for cover in (((0, 1), (1, n // 2 - 1), (n // 2, n - n // 2)),
+                          ((0, 3), (3, n - 5), (n - 2, 2))):
+                total = torch.zeros_like(want)
+                for l0, nl in cover:
+                    plain = hf_ref.fock_build_slab(pos, dens, basis, l0, nl)
+                    for p in space.points():
+                        before = hf_kernel.twoel_slab.launches
+                        part = hf_kernel.twoel_slab(pos4, dens, basis, l0, nl,
+                                                    **p)
+                        assert hf_kernel.twoel_slab.launches == before + 1
+                        torch.testing.assert_close(part, plain, rtol=HF_RTOL,
+                                                   atol=HF_ATOL)
+                    total += part
+                torch.testing.assert_close(total, want, rtol=HF_RTOL,
+                                           atol=HF_ATOL)
 
 
 def test_hartree_fock_kernel_is_deterministic(cuda):
-    pos = hf_ref.helium_lattice(24, device=cuda)
-    dens = hf_ref.initial_density(24, device=cuda)
+    for ngauss in (3, 6):
+        pos = hf_ref.helium_lattice(24, device=cuda)
+        dens = hf_ref.initial_density(24, device=cuda)
+        basis = hf_ref.sto_basis(ngauss, device=cuda)
+        space = get_kernel("hartree_fock.twoel").tunable_space("cuda")
+        for p in space.points():
+            first = hf_kernel.twoel(hf_kernel.pad4(pos), dens, basis, **p)
+            slab = hf_kernel.twoel_slab(hf_kernel.pad4(pos), dens, basis, 3,
+                                        7, **p)
+            for _ in range(5):
+                again = hf_kernel.twoel(hf_kernel.pad4(pos), dens, basis, **p)
+                assert torch.equal(first, again)
+                assert torch.equal(slab, hf_kernel.twoel_slab(
+                    hf_kernel.pad4(pos), dens, basis, 3, 7, **p))
+
+
+def test_hartree_fock_full_build_splits_past_the_scratch_limit(cuda):
+    """N = 216: a full build's scratch (4 * 216^4 bytes) is above the
+    limit, so ``twoel`` runs the slabs [0, 213) and [213, 216) and sums
+    them in order: one build, the same bits as that cover through
+    ``twoel_slab``, and a symmetric F."""
+    pos4 = hf_kernel.pad4(hf_ref.helium_lattice(216, device=cuda))
+    dens = hf_ref.initial_density(216, device=cuda)
     basis = hf_ref.sto_basis(3, device=cuda)
-    for p in get_kernel("hartree_fock.twoel").tunable_space("cuda").points():
-        first = hf_kernel.twoel(hf_kernel.pad4(pos), dens, basis, **p)
-        for _ in range(5):
-            again = hf_kernel.twoel(hf_kernel.pad4(pos), dens, basis, **p)
-            assert torch.equal(first, again)
+    assert hf_kernel.slab_plan(216) == [(0, 213), (213, 3)]
+    before = hf_kernel.twoel.launches, hf_kernel.twoel_slab.launches
+    full = hf_kernel.twoel(pos4, dens, basis)
+    assert (hf_kernel.twoel.launches,
+            hf_kernel.twoel_slab.launches) == (before[0] + 1, before[1])
+    cover = (hf_kernel.twoel_slab(pos4, dens, basis, 0, 213)
+             + hf_kernel.twoel_slab(pos4, dens, basis, 213, 3))
+    assert bool(torch.isfinite(full).all())
+    assert torch.equal(full, cover)
+    assert torch.equal(full, hf_kernel.twoel(pos4, dens, basis))
+    torch.testing.assert_close(full, full.T, rtol=HF_RTOL, atol=HF_ATOL)
 
 
 def test_new_kernels_reject_what_they_cannot_run(cuda):
@@ -207,6 +247,12 @@ def test_new_kernels_reject_what_they_cannot_run(cuda):
         hf_kernel.twoel(pos4, dens, basis, team=48)
     with pytest.raises(ValueError, match="slab"):
         hf_kernel.twoel_slab(pos4, dens, basis, 6, 4)
+    # a slab of all 216 atoms: 4 * 216^4 bytes of integral scratch, above
+    # the limit; the wrapper says so before it allocates anything
+    big = hf_kernel.pad4(hf_ref.helium_lattice(216, device=cuda))
+    big_dens = hf_ref.initial_density(216, device=cuda)
+    with pytest.raises(ValueError, match=f"{4 * 216 ** 4} bytes"):
+        hf_kernel.twoel_slab(big, big_dens, basis, 0, 216)
 
 
 @pytest.mark.parametrize("name", PORTED)
