@@ -52,7 +52,11 @@ chunked WKV kernel, 32 launches a call.
                 ``scaled_dot_product_attention`` and its least-work bound
                 (``flash_attention/ops.py::least_flops`` for prefill), with
                 every bf16 flash tile point checked and timed as a CUDA
-                graph, and flash's TFLOP/s on the admitted pairs;
+                graph, and flash's TFLOP/s on the admitted pairs; decode
+                must be one CUDA launch a call (``torch.profiler``), and its
+                split blocks live and empty at the serving fills and every
+                bkv point (checked, timed as a CUDA graph) are printed, with
+                the earlier kernels' times (PERF.md) beside the new ones;
   7. serving:   16 greedy requests (prompts of 64-2048 tokens from the seed,
                 32 new tokens each) through the engine, with the attention
                 launch counts set to 0 just before and read just after:
@@ -65,11 +69,16 @@ chunked WKV kernel, 32 launches a call.
                 from a random state (in 1), then at the serving shape (B 8,
                 H 40, S 2048, Dh 64) and the decode step's (S 1, from a
                 state) against the exact recurrence, timed beside it, the
-                plain chunked form and the bound; then rwkv6-3b generates
-                32 greedy tokens for 8 prompts of 2048 tokens with the WKV
-                launch count set to 0 just before and read just after (32
-                a call: 1024); on the same weights in float32, one row's
-                prefill logits against the plain WKV's, and a 2047-token
+                plain chunked form and the bound, with each CUDA kernel's
+                time (``torch.profiler``: the one-token kernel at S 1, the
+                state increments, the scan and the outputs at S 2048, and
+                no other kernel), every chunk timed as a CUDA graph and
+                the earlier kernel's times (PERF.md) beside the new ones;
+                then rwkv6-3b generates 32 greedy tokens for 8 prompts of
+                2048 tokens with the WKV launch count set to 0 just before
+                and read just after (32 a call: 1024); on the same
+                weights in float32, one row's prefill logits against the
+                plain WKV's, and a 2047-token
                 prefill plus one decode step against the 2048-token
                 prefill, within 2% of the range; in bfloat16, where the
                 plain WKV's own two forms disagree by ~5% of the range, the
@@ -173,6 +182,18 @@ RWKV_GATE_ROWS = 2  # rows of the handoff gate and of the bf16 gates
 #: WKV's own spread (serial against chunked) on the same rows and tokens
 BF16_FLOOR_X = 2.0
 WKV_TOL = conformance.ORACLE_TOL[RWKV]
+#: the CUDA kernels of a WKV call (csrc/rwkv6.cu): one token, and S > 1
+WKV_STEP = ("wkv_step_kernel",)
+WKV_CHUNKS = ("wkv_delta_kernel", "wkv_scan_kernel", "wkv_output_kernel")
+DECODE_KERNEL = "decode_kernel"   # the one launch of a decode call
+#: the two kernels' times before this design, ms by time_call and [device
+#: ms as a CUDA graph], as chip_smoke.py measured them on an NVIDIA H100
+#: 80GB HBM3 at 700.00 W (PERF.md section 6): printed beside the new ones
+EARLIER = {
+    "attention.decode": (0.06889439821243286, 0.04816160053014755),
+    "serving shape": (2.5222721099853516, 2.518734359741211),
+    "decode step": (0.05361759960651398, 0.038540801405906676),
+}
 
 SOURCE = {name: "src/repro_torch/kernels/babelstream/kernel.py"
           for name in SLICE1[:5]}
@@ -400,6 +421,39 @@ def device_profile(fn: Callable[[], Any], top: int = 6, match: str = ""):
                   for e in ranked], matched
 
 
+def kernels_run(fn: Callable[[], Any], names, expect,
+                tries: int = 3) -> Dict[str, Tuple[float, int]]:
+    """{name: (device ms a call, launches a call)} of the kernels that
+    ``fn()`` runs, each of whose profiled names must hold one of ``names``
+    (else it fails), from three calls under ``torch.profiler`` after one
+    call outside it.  The profiler here can drop records, even whole calls:
+    a kernel seen one to three times counts as one launch a call, and the
+    profile is taken again, up to ``tries`` times, until every name of
+    ``expect`` shows."""
+    calls = 3
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        found = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            hits = [n for n in names if n + "<" in e.key or n + "(" in e.key]
+            if not hits:
+                fail(f"a call ran {e.key!r}, none of {names}")
+            found[hits[0]] = (e.self_device_time_total / 1e3 / e.count,
+                              -(-e.count // calls))
+        if set(expect) <= set(found):
+            break
+    return found
+
+
 def attention_sweep(dev) -> None:
     """Both kernels over their declared tunables at head dims 64 and 128,
     float32 at ORACLE_TOL and bfloat16 at BF16_TOL, on the shared sweep
@@ -519,6 +573,37 @@ def attention_cases(dev, seed: int) -> List[AttnCase]:
                       q.transpose(1, 2), k.transpose(1, 2),
                       v.transpose(1, 2)))
     return [flash, decode]
+
+
+def decode_report(c: AttnCase, want: torch.Tensor, card: str
+                  ) -> Dict[str, Any]:
+    """Decode at the serving shape: the one CUDA launch a call makes
+    (failing on any other), the split blocks that hold an admitted row
+    against those that do not, and every declared bkv checked and timed
+    as a CUDA graph."""
+    q, k, v, qp, kp = c.args
+    ran = kernels_run(lambda: attn_kernel.decode(*c.args), (DECODE_KERNEL,),
+                      (DECODE_KERNEL,))
+    if list(ran) != [DECODE_KERNEL] or ran[DECODE_KERNEL][1] != 1:
+        fail(f"{c.name}: one call ran {ran}, not one {DECODE_KERNEL}")
+    b, t, kv = k.shape[:3]
+    ok = attn_ref.admitted(qp, kp, causal=True)[:, 0]          # (B, T)
+    splits, sweep = {}, {}
+    for pt in get_kernel(c.name).tunable_space("cuda").points():
+        bkv = pt["bkv"]
+        n = -(-t // bkv)
+        live = int(F.pad(ok, (0, n * bkv - t)).reshape(b, n, bkv).any(-1)
+                   .sum()) * kv
+        splits[bkv] = {"live": live, "empty": b * n * kv - live}
+        attn_cases.hold_live(attn_kernel.decode(*c.args, **pt), want, c.live,
+                             *BF16_TOL, f"{c.name} at the serving shape {pt}")
+        sweep[bkv] = graph_ms(lambda pt=pt: attn_kernel.decode(*c.args, **pt))
+    print(f"{c.name}: one launch a call ({DECODE_KERNEL}, "
+          f"{ran[DECODE_KERNEL][0]:.4f} ms by torch.profiler); split blocks "
+          f"live / empty at the serving fills by bkv: {splits}")
+    print(f"{c.name} bkv points at the serving shape, device ms (CUDA "
+          f"graph) on {card}: {sweep}; default {attn_kernel.BKV}")
+    return {"splits": splits, "bkv": sweep}
 
 
 def serve(dev, seed: int) -> Dict[str, Any]:
@@ -700,7 +785,8 @@ def wkv_sweep(dev) -> float:
     return worst
 
 
-def wkv_checks(dev, seed: int, bw: float, peak: float) -> Dict[str, Any]:
+def wkv_checks(dev, seed: int, bw: float, peak: float,
+               card: str) -> Dict[str, Any]:
     """The WKV at the serving shape (B 8, H 40, S 2048, Dh 64 from zeros:
     the prefill of the RWKV load) and at its decode step (S 1 from a state),
     each against the exact recurrence at ORACLE_TOL, timed with time_call
@@ -752,11 +838,42 @@ def wkv_checks(dev, seed: int, bw: float, peak: float) -> Dict[str, Any]:
               f"{bound_ms / dev_ms:.2%} of the bound; plain (serial) "
               f"{plain_ms:.4f} ms, plain chunked {chunked_ms:.4f} ms; "
               f"library: none exists; host enqueue {host_ms:.4f} ms a call")
+        # which kernels ran, and their device time
+        want_kernels = WKV_STEP if s == 1 else WKV_CHUNKS
+        ran = kernels_run(lambda: wkv_kernel.wkv(*args, state),
+                          WKV_STEP + WKV_CHUNKS, want_kernels)
+        if sorted(ran) != sorted(want_kernels) or any(
+                calls != 1 for _, calls in ran.values()):
+            fail(f"{RWKV} at S {s} ran {ran}, not one launch each of "
+                 f"{want_kernels}")
+        print(f"{RWKV} at the {label}, device ms by kernel (torch.profiler) "
+              f"on {card}: " + ", ".join(
+                  f"{n} {ran[n][0]:.4f}" for n in want_kernels))
+        before_ms, before_graph = EARLIER[label]
+        print(f"{RWKV} at the {label}: now {ms:.4f} ms [{dev_ms:.4f} as a "
+              f"graph], the earlier one-block-per-(b, h) kernel "
+              f"{before_ms:.4f} ms [{before_graph:.4f}] (chip_smoke.py, "
+              f"NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)")
         out[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms,
                       "bound_by": "bytes" if t_bytes >= t_ops
                       else "operations", "library_ms": None,
-                      "graph_ms": dev_ms, "plain_chunked_ms": chunked_ms}
+                      "graph_ms": dev_ms, "plain_chunked_ms": chunked_ms,
+                      "by_kernel_ms": {n: ran[n][0] for n in ran}}
+        if s > 1:
+            # every chunk of the grid at the serving shape, as graphs
+            chunks = {}
+            for pt in wkv_cases.points():
+                err = max(err, wkv_cases.hold(
+                    wkv_kernel.wkv(*args, state.clone() if state is not None
+                                   else None, **pt), want, *WKV_TOL,
+                    f"{RWKV} at the {label} {pt}"))
+                chunks[pt["chunk"]] = graph_ms(
+                    lambda pt=pt: wkv_kernel.wkv(*args, state, **pt))
+            print(f"{RWKV} at the {label}, device ms (CUDA graph) by chunk "
+                  f"on {card}: {chunks}; default {wkv_kernel.CHUNK}")
+            out[label]["chunks_graph_ms"] = chunks
+            out[label]["max_abs_err"] = err
     return out
 
 
@@ -1224,6 +1341,8 @@ def main() -> None:
                   f"TFLOP/s on the admitted pairs (CUDA graph), library "
                   f"(scaled_dot_product_attention) "
                   f"{c.least_flops / dev_ms['library'] / 1e9:.1f}, on {card}")
+        if c.name == ATTN[1]:
+            dev_ms.update(decode_report(c, want, card))
         t_bytes = c.least_bytes / bw * 1e3
         t_ops = c.least_flops / peak_bf16 * 1e3
         bound_ms = max(t_bytes, t_ops)
@@ -1242,6 +1361,13 @@ def main() -> None:
               f"{dev_ms['kernel']:.4f} ms = {bound_ms / dev_ms['kernel']:.2%}"
               f" of the bound, plain {dev_ms['plain']:.4f} ms, library "
               f"{dev_ms['library']:.4f} ms")
+        if c.name == ATTN[1]:
+            before_ms, before_graph = EARLIER[c.name]
+            print(f"{c.name}: now {ms:.4f} ms [{dev_ms['kernel']:.4f} as a "
+                  f"graph], the earlier split and combine kernels "
+                  f"{before_ms:.4f} ms "
+                  f"[{before_graph:.4f}] (chip_smoke.py, NVIDIA H100 80GB "
+                  f"HBM3, 700.00 W; PERF.md)")
         attn[c.name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms,
                         "bound_by": "bytes" if t_bytes >= t_ops
@@ -1261,7 +1387,7 @@ def main() -> None:
 
     # ---- 8. rwkv: the WKV and RWKV serving -----------------------------
     t0 = time.perf_counter()
-    wkv = wkv_checks(dev, args.seed, bw, peak)
+    wkv = wkv_checks(dev, args.seed, bw, peak, card)
     rwkv = serve_rwkv(dev, args.seed)
     print(f"rwkv phase: {time.perf_counter() - t0:.1f} s")
     rec = {"name": RWKV, "route": get_kernel(RWKV).native,

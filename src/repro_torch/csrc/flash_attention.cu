@@ -69,18 +69,52 @@
 // running max and sum and a (BQ/16) x (Dh/16) piece of the accumulator, and
 // the probabilities go through shared memory into P.V.
 //
-// decode_split_kernel + decode_combine_kernel (decode).  What bounds it:
-// bytes.  One query per (row, head) reads every valid K/V row of the cache
-// once (2 Dh flops per byte pair).  What the design does about it: the
-// cache is read in its native (B, T, Kv, Dh) layout through its strides
-// (no copy), 16 bytes a thread.  At 8 rows x 8 kv heads there are only 64
-// (b, kv) pairs for 132 SMs, so T is split into chunks of bkv slots across
-// blocks (flash-decoding): block (split, kv, b) computes the G = H / Kv
-// query heads of its kv head over its chunk (each K/V row is read once for
-// all G heads), skipping chunks and rows whose positions are refused, and
-// writes an unnormalised partial (m, l, acc); a second kernel combines the
-// partials of each (b, h) in split order.  No atomics, so the result is
-// bit-for-bit repeatable.
+// decode_kernel (decode).  What bounds it: bytes.  One query per (row,
+// head) reads every admitted K/V row of the cache once (2 Dh flops per byte
+// pair).  The cache is read in its native (B, T, Kv, Dh) layout through its
+// strides (no copy), 16 bytes a thread.  At 8 rows x 8 kv heads there are
+// only 64 (b, kv) pairs for 132 SMs, so T is split into chunks of bkv slots
+// across blocks (flash-decoding): block (kv, b, split) computes the G = H /
+// Kv query heads of its kv head over its chunk (each K/V row is read once
+// for all G heads), skipping rows whose positions are refused, and writes
+// an unnormalised partial (m, l, acc).  A row's split boundaries depend on
+// T alone, never on the batch or the other rows' fills.
+//   The first decode was two launches: the split pass, where every split
+// wrote a partial, and a combine kernel that read them all back.  At the
+// serving fills only 320 of 2048 split blocks hold an admitted row, so
+// 1728 wrote, and the combine re-read, 4.2 MB of zero partials (0.0482 ms
+// as a CUDA graph against a 0.0057 ms bound on an H100 SXM at 700 W).  Now:
+//   * one launch: each block, after writing its partial, fences and counts
+//     itself in on a per-(b, kv) arrival counter (atomicAdd); the last to
+//     arrive combines that pair's partials in split order, writes the
+//     output and sets the counter back to 0 for the next call (and every
+//     graph replay).  The atomic only picks the block that combines; every
+//     sum keeps one fixed order, so a result is bit-for-bit repeatable;
+//   * a split with no admitted row writes only m = -1e30 and l = 0; the
+//     combine skips it without reading its acc.  The combine reads each
+//     split's m and l in parallel, a split a thread, and sums the outputs
+//     over a list of the live splits, so that it costs a few round trips
+//     to L2, not one a split;
+//   * a block takes two splits, z and z + nsplit / 2, so half as many
+//     blocks arrive (an empty split costs a fence and an atomic in a block
+//     of its own), while the first splits of an unwrapped cache, where its
+//     admitted rows lie, stay one a block; z is the grid's slowest axis, so
+//     they start first;
+//   * in a live block each thread keeps its 8 elements of the G heads' q in
+//     registers (MAXG, 4 or 8, bounds G at compile time), issues the K
+//     loads of several passes (8 in bf16, 4 in float32: 32 registers)
+//     before it uses the first, interleaves the heads' shuffle sums, and
+//     issues V's first passes before the softmax, so they arrive while it
+//     runs.
+//   Tried on the way (serving shape, bkv 128, CUDA graphs, H100 SXM at
+// 700 W, intermediate builds of this file): the first one-launch version,
+// with the combine reading split after split, a head's dot product and
+// shuffles at a time and the split the fastest grid axis, took 0.0415 ms,
+// its combine 0.0115 of it; issuing one or two passes' loads at a time in
+// it, 0.0484 and 0.0466 ms; with the combine and the loads as above but a
+// split a block, 0.0265 ms.  Not tried: K and V tiles in shared memory by
+// TMA, a cluster along the split axis combining in distributed shared
+// memory.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -94,6 +128,9 @@ constexpr int kFlashThreads = 256;
 constexpr int kDecodeThreads = 128;
 constexpr int kMaxGroup = 8;       // query heads per kv head (decode)
 constexpr int kMaxBkv = 512;       // cache slots per decode block
+constexpr int kWindow = kDecodeThreads;  // splits the decode combine takes
+                                         // at a time
+constexpr int kSplitsPerBlock = 2;       // decode splits a block takes
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -113,24 +150,6 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
-}
-
-// eight consecutive elements (16-byte aligned) as float32
-__device__ __forceinline__ void load8(float* out, const float* ptr) {
-  const float4 a = *reinterpret_cast<const float4*>(ptr);
-  const float4 b = *reinterpret_cast<const float4*>(ptr + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-__device__ __forceinline__ void load8(float* out, const __nv_bfloat16* ptr) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(ptr);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
 }
 
 __device__ __forceinline__ bool admitted(int qp, int kp, int causal,
@@ -838,41 +857,92 @@ struct DecodeParams {
   const void* q;        // (B, 1, H, Dh), contiguous
   const void* k;        // (B, T, Kv, Dh) through ks
   const void* v;        // (B, T, Kv, Dh) through vs
+  void* o;              // (B, 1, H, Dh), contiguous
   const int* q_pos;     // (B, 1)
   const int* k_pos;     // (B, T) through kps
   float* m_part;        // (B, Kv, nsplit, G)
   float* l_part;        // (B, Kv, nsplit, G)
-  float* acc_part;      // (B, Kv, nsplit, G, Dh)
+  float* acc_part;      // (B, Kv, nsplit, G, Dh); an empty split's unwritten
+  int* arrivals;        // (B, Kv): splits done; 0 before and after a call
   long long ks[3], vs[3];  // element strides of (b, t, kv head)
   long long kps;
   int heads, kv_heads, t, bkv, nsplit, window;
   float scale;
 };
 
-template <int DH>
-constexpr int decode_smem_bytes() {
-  // q (G x Dh) + logits (G x bkv) + partial sums (groups x G x Dh) + flags
-  return (kMaxGroup * DH + kMaxGroup * kMaxBkv +
-          kDecodeThreads * 8 * kMaxGroup) * 4 + kMaxBkv;
+// eight consecutive elements (16-byte aligned) as loaded, before the
+// conversion to float32: a thread issues several before it uses one
+template <typename T>
+struct Raw8;
+template <>
+struct Raw8<float> {
+  float4 a, b;
+};
+template <>
+struct Raw8<__nv_bfloat16> {
+  uint4 a;
+};
+__device__ __forceinline__ Raw8<float> load_raw8(const float* ptr) {
+  return {*reinterpret_cast<const float4*>(ptr),
+          *reinterpret_cast<const float4*>(ptr + 4)};
+}
+__device__ __forceinline__ Raw8<__nv_bfloat16> load_raw8(
+    const __nv_bfloat16* ptr) {
+  return {*reinterpret_cast<const uint4*>(ptr)};
+}
+__device__ __forceinline__ void unpack8(float* out, const Raw8<float>& x) {
+  out[0] = x.a.x; out[1] = x.a.y; out[2] = x.a.z; out[3] = x.a.w;
+  out[4] = x.b.x; out[5] = x.b.y; out[6] = x.b.z; out[7] = x.b.w;
+}
+__device__ __forceinline__ void unpack8(float* out,
+                                        const Raw8<__nv_bfloat16>& x) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x.a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
 }
 
-template <typename T, int DH>
+// the decode kernel's dynamic shared memory at its largest: logits
+// (G x bkv) + partial sums (groups x G x Dh) + flags; the combine reuses
+// the first two
+constexpr int kDecodeMaxSmem =
+    (kMaxGroup * kMaxBkv + kDecodeThreads * 8 * kMaxGroup) * 4 + kMaxBkv;
+
+// One launch a call: block (kv, b, split) writes the partial (m, l, acc) of
+// the G query heads of kv head kv over its chunk of bkv slots; the block
+// that arrives last for (b, kv) combines the partials in split order.
+// MAXG (4 or 8) bounds G at compile time, so that q, the logits and the
+// accumulators of the G heads sit in registers, unrolled.
+template <typename T, int DH, int MAXG>
 __global__ void __launch_bounds__(kDecodeThreads)
-    decode_split_kernel(const DecodeParams p) {
+    decode_kernel(const DecodeParams p) {
   constexpr int VEC = 8, TPK = DH / VEC, NGRP = kDecodeThreads / TPK;
+  // passes whose loads are issued together: 32 registers of raw rows
+  constexpr int U = sizeof(T) == 2 ? 8 : 4;
   const int G = p.heads / p.kv_heads;
   extern __shared__ float smem[];
-  float* qs = smem;                // G x Dh
-  float* ls = qs + G * DH;         // G x bkv: logits, then probabilities
+  float* ls = smem;                // G x bkv: logits, then probabilities
   float* red = ls + G * p.bkv;     // NGRP x G x Dh
   unsigned char* ok_s = reinterpret_cast<unsigned char*>(red + NGRP * G * DH);
+  __shared__ int is_last, n_live, warp_live[kDecodeThreads / 32];
+  __shared__ float mx_s[MAXG], l_s[MAXG], warp_mx[kDecodeThreads / 32][MAXG];
 
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int t0 = split * p.bkv, n = min(p.bkv, p.t - t0);
+  // Block z of a (kv, b) pair takes splits z, z + Z, ... (Z = gridDim.z,
+  // kSplitsPerBlock of them): the blocks of a pair that arrive, and the
+  // empty splits that each pays a fence and an atomic for, are fewer, while
+  // an unwrapped cache's admitted rows, in its first splits, stay one split
+  // a block.  The split index is the grid's slowest axis, so those first
+  // splits start first.
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, wl = tid % 32;
   const int qp = p.q_pos[b];
-  const long long part =
-      (static_cast<long long>(b * p.kv_heads + kvh) * p.nsplit + split) * G;
+  const long long bk = static_cast<long long>(b) * p.kv_heads + kvh;
+  for (int split = blockIdx.z; split < p.nsplit; split += gridDim.z) {
+  const int t0 = split * p.bkv, n = min(p.bkv, p.t - t0);
+  const long long part = (bk * p.nsplit + split) * G;
 
   int any = 0;
   for (int t = tid; t < n; t += kDecodeThreads) {
@@ -880,163 +950,295 @@ __global__ void __launch_bounds__(kDecodeThreads)
     ok_s[t] = ok;
     any |= ok;
   }
-  if (!__syncthreads_or(any)) {  // nothing admitted: an empty partial
-    for (int i = tid; i < G * DH; i += kDecodeThreads)
-      p.acc_part[part * DH + i] = 0.f;
+  if (!__syncthreads_or(any)) {
+    // nothing admitted: m and l only, and the combine skips this split
     if (tid < G) {
       p.m_part[part + tid] = kNegInf;
       p.l_part[part + tid] = 0.f;
     }
-    return;
-  }
-  const T* q = static_cast<const T*>(p.q) +
-               (static_cast<long long>(b) * p.heads + kvh * G) * DH;
-  for (int i = tid; i < G * DH; i += kDecodeThreads) qs[i] = to_float(q[i]);
-  __syncthreads();
+  } else {
+    // logits: a team of TPK threads per key, 8 elements a thread, this
+    // lane's 8 elements of every head's q in registers; the K rows of U
+    // passes loaded before the first is used, and the heads' shuffle sums
+    // interleaved
+    const int grp = tid / TPK, lane = tid % TPK;
+    float qr[MAXG][VEC];
+    {
+      const T* q = static_cast<const T*>(p.q) +
+                   (static_cast<long long>(b) * p.heads + kvh * G) * DH +
+                   lane * VEC;
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          qr[g][e] = g < G ? to_float(q[g * DH + e]) : 0.f;
+    }
+    const T* kb = static_cast<const T*>(p.k) + b * p.ks[0] + kvh * p.ks[2] +
+                  lane * VEC;
+    const T* vb = static_cast<const T*>(p.v) + b * p.vs[0] + kvh * p.vs[2] +
+                  lane * VEC;
+    for (int base = 0; base < n; base += U * NGRP) {  // same trips per warp
+      Raw8<T> raw[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = base + u * NGRP + grp;
+        raw[u] = t < n && ok_s[t] ? load_raw8(kb + (t0 + t) * p.ks[1])
+                                  : Raw8<T>{};
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = base + u * NGRP + grp;
+        float kf[VEC], sg[MAXG];
+        unpack8(kf, raw[u]);
+#pragma unroll
+        for (int g = 0; g < MAXG; ++g) {
+          sg[g] = 0.f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) sg[g] = fmaf(qr[g][e], kf[e], sg[g]);
+        }
+#pragma unroll
+        for (int off = TPK / 2; off > 0; off >>= 1)
+#pragma unroll
+          for (int g = 0; g < MAXG; ++g)
+            sg[g] += __shfl_xor_sync(0xffffffffu, sg[g], off);
+        if (lane == 0 && t < n)
+#pragma unroll
+          for (int g = 0; g < MAXG; ++g)
+            if (g < G)
+              ls[g * p.bkv + t] = ok_s[t] ? sg[g] * p.scale : -CUDART_INF_F;
+      }
+    }
+    // V's first U passes in flight across the softmax
+    Raw8<T> raw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = u * NGRP + grp;
+      raw[u] = t < n && ok_s[t] ? load_raw8(vb + (t0 + t) * p.vs[1])
+                                : Raw8<T>{};
+    }
+    __syncthreads();
 
-  // logits: a team of TPK threads per key, 8 elements a thread
-  const int grp = tid / TPK, lane = tid % TPK;
-  const T* kb = static_cast<const T*>(p.k) + b * p.ks[0] + kvh * p.ks[2] +
-                lane * VEC;
-  const T* vb = static_cast<const T*>(p.v) + b * p.vs[0] + kvh * p.vs[2] +
-                lane * VEC;
-  for (int base = 0; base < n; base += NGRP) {  // same trip count per warp
-    const int t = base + grp;
-    const bool ok = t < n && ok_s[t];
-    float kf[VEC];
-    if (ok) {
-      load8(kf, kb + (t0 + t) * p.ks[1]);
-    } else {
+    // this chunk's max and sum for each query head: one warp a head
+    for (int g = warp; g < G; g += kDecodeThreads / 32) {
+      float mx = kNegInf;
+      for (int t = wl; t < n; t += 32) mx = fmaxf(mx, ls[g * p.bkv + t]);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) kf[e] = 0.f;
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      float sum = 0.f;
+      for (int t = wl; t < n; t += 32) {
+        const float e = expf(ls[g * p.bkv + t] - mx);  // refused: 0
+        sum += e;
+        ls[g * p.bkv + t] = round_to<T>(e);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (wl == 0) {
+        p.m_part[part + g] = mx;
+        p.l_part[part + g] = sum;
+      }
     }
-    for (int g = 0; g < G; ++g) {
-      float s = 0.f;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) s = fmaf(qs[g * DH + lane * VEC + e], kf[e], s);
-#pragma unroll
-      for (int off = TPK / 2; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0 && t < n) ls[g * p.bkv + t] = ok ? s * p.scale : -CUDART_INF_F;
-    }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // this chunk's max and sum for each query head: one warp a head
-  const int warp = tid / 32, wl = tid % 32;
-  for (int g = warp; g < G; g += kDecodeThreads / 32) {
-    float mx = kNegInf;
-    for (int t = wl; t < n; t += 32) mx = fmaxf(mx, ls[g * p.bkv + t]);
+    // P.V over the admitted rows, then a fixed-order sum over the teams
+    float acc[MAXG][VEC];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-    for (int t = wl; t < n; t += 32) {
-      const float e = expf(ls[g * p.bkv + t] - mx);  // refused: 0
-      sum += e;
-      ls[g * p.bkv + t] = round_to<T>(e);
-    }
+    for (int g = 0; g < MAXG; ++g)
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (wl == 0) {
-      p.m_part[part + g] = mx;
-      p.l_part[part + g] = sum;
-    }
-  }
-  __syncthreads();
-
-  // P.V over the admitted rows, then a fixed-order sum over the teams
-  float acc[kMaxGroup][VEC];
+      for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+    for (int base = 0; base < n; base += U * NGRP) {
+      if (base > 0) {
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g)
+        for (int u = 0; u < U; ++u) {
+          const int t = base + u * NGRP + grp;
+          raw[u] = t < n && ok_s[t] ? load_raw8(vb + (t0 + t) * p.vs[1])
+                                    : Raw8<T>{};
+        }
+      }
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
-  for (int base = 0; base < n; base += NGRP) {
-    const int t = base + grp;
-    if (t < n && ok_s[t]) {
-      float vf[VEC];
-      load8(vf, vb + (t0 + t) * p.vs[1]);
+      for (int u = 0; u < U; ++u) {
+        const int t = base + u * NGRP + grp;
+        if (t < n && ok_s[t]) {
+          float vf[VEC];
+          unpack8(vf, raw[u]);
 #pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) {
-        if (g < G) {
-          const float pg = ls[g * p.bkv + t];
+          for (int g = 0; g < MAXG; ++g) {
+            if (g < G) {
+              const float pg = ls[g * p.bkv + t];
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(pg, vf[e], acc[g][e]);
+              for (int e = 0; e < VEC; ++e)
+                acc[g][e] = fmaf(pg, vf[e], acc[g][e]);
+            }
+          }
         }
       }
     }
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      if (g < G) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          red[(grp * G + g) * DH + lane * VEC + e] = acc[g][e];
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < G * DH; i += kDecodeThreads) {
+      float s = 0.f;
+      for (int gi = 0; gi < NGRP; ++gi) s += red[gi * G * DH + i];
+      p.acc_part[part * DH + i] = s;
+    }
   }
+  __syncthreads();  // the shared tiles are the next split's
+  }
+
+  // arrival: the partials are visible on the device before the count
+  // moves; the last block of (b, kv) resets the count for the next call
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    is_last = atomicAdd(p.arrivals + bk, 1) == gridDim.z - 1;
+    if (is_last) p.arrivals[bk] = 0;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // The combine, in split order, a window of kWindow splits at a time (a
+  // split a thread): the max over every split first, then for each window
+  // the weights exp(m - max), the list of the splits that admitted a row,
+  // and each output's sum over that list.  An empty split (l = 0) adds
+  // nothing, and its acc, never written, is not read.  The partials come
+  // from L2 (__ldcg): other blocks wrote them.
+  const float* mp = p.m_part + bk * p.nsplit * G;
+  const float* lp = p.l_part + bk * p.nsplit * G;
+  const float* ap = p.acc_part + bk * p.nsplit * G * DH;
+  float* w_s = smem;                          // kWindow x G: exp(m - max)
+  float* lw_s = w_s + kWindow * G;            // kWindow x G: l exp(m - max)
+  int* live_s = reinterpret_cast<int*>(lw_s + kWindow * G);  // kWindow
+  float m0[MAXG], l0[MAXG];  // the first window's, kept from the max pass
+  {
+    float mx[MAXG];
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    if (g < G) {
+    for (int g = 0; g < MAXG; ++g) mx[g] = kNegInf;
+    for (int s = tid; s < p.nsplit; s += kDecodeThreads) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        red[(grp * G + g) * DH + lane * VEC + e] = acc[g][e];
+      for (int g = 0; g < MAXG; ++g) {
+        const float m = g < G ? __ldcg(mp + s * G + g) : kNegInf;
+        if (s == tid) {
+          m0[g] = m;
+          l0[g] = g < G ? __ldcg(lp + s * G + g) : 0.f;
+        }
+        mx[g] = fmaxf(mx[g], m);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], off));
+      if (wl == 0) warp_mx[warp][g] = mx[g];
     }
   }
   __syncthreads();
-  for (int i = tid; i < G * DH; i += kDecodeThreads) {
-    float s = 0.f;
-    for (int gi = 0; gi < NGRP; ++gi) s += red[gi * G * DH + i];
-    p.acc_part[part * DH + i] = s;
+  if (tid < G) {  // the max is exact in any order
+    float mx = kNegInf;
+    for (int wi = 0; wi < kDecodeThreads / 32; ++wi)
+      mx = fmaxf(mx, warp_mx[wi][tid]);
+    mx_s[tid] = mx;
+    l_s[tid] = 0.f;
   }
-}
-
-// one block per (b, h): the partials of every split, in split order
-template <typename T>
-__global__ void decode_combine_kernel(const DecodeParams p, void* out,
-                                      int dh) {
-  const int G = p.heads / p.kv_heads;
-  const int bh = blockIdx.x, b = bh / p.heads, h = bh % p.heads;
-  const int kvh = h / G, g = h % G;
-  const long long base =
-      static_cast<long long>(b * p.kv_heads + kvh) * p.nsplit;
-  float mx = kNegInf;
-  for (int s = 0; s < p.nsplit; ++s) mx = fmaxf(mx, p.m_part[(base + s) * G + g]);
-  for (int d = threadIdx.x; d < dh; d += blockDim.x) {
-    float l = 0.f, o = 0.f;
-    for (int s = 0; s < p.nsplit; ++s) {
-      const long long i = (base + s) * G + g;
-      const float w = expf(p.m_part[i] - mx);
-      l += p.l_part[i] * w;
-      o += p.acc_part[i * dh + d] * w;
+  __syncthreads();
+  constexpr int OUT = (MAXG * DH + kDecodeThreads - 1) / kDecodeThreads;
+  float o[OUT];
+#pragma unroll
+  for (int j = 0; j < OUT; ++j) o[j] = 0.f;
+  for (int s0 = 0; s0 < p.nsplit; s0 += kWindow) {
+    const int s = s0 + tid;
+    bool live = false;
+    if (s < p.nsplit) {
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g) {
+        if (g < G) {
+          const float m = s0 ? __ldcg(mp + s * G + g) : m0[g];
+          const float l = s0 ? __ldcg(lp + s * G + g) : l0[g];
+          const float w = l == 0.f ? 0.f : expf(m - mx_s[g]);
+          w_s[tid * G + g] = w;
+          lw_s[tid * G + g] = l * w;
+          live |= l != 0.f;
+        }
+      }
     }
-    static_cast<T*>(out)[static_cast<long long>(bh) * dh + d] =
-        from_float<T>(o / fmaxf(l, 1e-30f));
+    // the live splits of the window, in order (a ballot a warp)
+    const unsigned ballot = __ballot_sync(0xffffffffu, live);
+    if (wl == 0) warp_live[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0;
+    for (int wi = 0; wi < warp; ++wi) before += warp_live[wi];
+    if (live) live_s[before + __popc(ballot & ((1u << wl) - 1u))] = tid;
+    if (tid == 0) {
+      int total = 0;
+      for (int wi = 0; wi < kDecodeThreads / 32; ++wi) total += warp_live[wi];
+      n_live = total;
+    }
+    __syncthreads();
+    if (tid < G)
+      for (int x = 0; x < n_live; ++x) l_s[tid] += lw_s[live_s[x] * G + tid];
+#pragma unroll 4
+    for (int x = 0; x < n_live; ++x) {
+      const int sx = live_s[x];
+#pragma unroll
+      for (int j = 0; j < OUT; ++j) {
+        const int i = tid + j * kDecodeThreads;
+        if (i < G * DH)
+          o[j] += __ldcg(ap + (static_cast<long long>(s0 + sx) * G) * DH + i) *
+                  w_s[sx * G + i / DH];
+      }
+    }
+    __syncthreads();
+  }
+  T* out = static_cast<T*>(p.o) +
+           (static_cast<long long>(b) * p.heads + kvh * G) * DH;
+#pragma unroll
+  for (int j = 0; j < OUT; ++j) {
+    const int i = tid + j * kDecodeThreads;
+    if (i < G * DH)
+      out[i] = from_float<T>(o[j] / fmaxf(l_s[i / DH], 1e-30f));
   }
 }
 
-template <typename T, int DH>
-int launch_decode(const DecodeParams& p, void* out, int batch,
-                  cudaStream_t stream) {
-  constexpr int max_smem = decode_smem_bytes<DH>();
+template <typename T, int DH, int MAXG>
+int launch_decode(const DecodeParams& p, int batch, cudaStream_t stream) {
   static bool configured = false;  // once per instantiation and process
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_split_kernel<T, DH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+        decode_kernel<T, DH, MAXG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kDecodeMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const int G = p.heads / p.kv_heads;
-  const int smem = (G * DH + G * p.bkv + kDecodeThreads * 8 * G) * 4 + p.bkv;
-  const dim3 grid(p.nsplit, p.kv_heads, batch);
-  decode_split_kernel<T, DH><<<grid, kDecodeThreads, smem, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decode_combine_kernel<T><<<batch * p.heads, DH, 0, stream>>>(p, out, DH);
+  const int smem = (G * p.bkv + kDecodeThreads * 8 * G) * 4 + p.bkv;
+  const dim3 grid(p.kv_heads, batch,
+                  (p.nsplit + kSplitsPerBlock - 1) / kSplitsPerBlock);
+  decode_kernel<T, DH, MAXG><<<grid, kDecodeThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int DH>
+int decode_group(const DecodeParams& p, int batch, cudaStream_t stream) {
+  if (p.heads / p.kv_heads <= 4)
+    return launch_decode<T, DH, 4>(p, batch, stream);
+  return launch_decode<T, DH, 8>(p, batch, stream);
+}
+
 template <typename T>
-int decode_dh(const DecodeParams& p, void* out, int batch, int dh,
-              cudaStream_t stream) {
+int decode_dh(const DecodeParams& p, int batch, int dh, cudaStream_t stream) {
   switch (dh) {
-    case 16: return launch_decode<T, 16>(p, out, batch, stream);
-    case 32: return launch_decode<T, 32>(p, out, batch, stream);
-    case 64: return launch_decode<T, 64>(p, out, batch, stream);
-    case 128: return launch_decode<T, 128>(p, out, batch, stream);
+    case 16: return decode_group<T, 16>(p, batch, stream);
+    case 32: return decode_group<T, 32>(p, batch, stream);
+    case 64: return decode_group<T, 64>(p, batch, stream);
+    case 128: return decode_group<T, 128>(p, batch, stream);
     default: return -1;
   }
 }
@@ -1072,23 +1274,26 @@ extern "C" int flash_attention_fwd(
   return -1;
 }
 
-// Decode attention on `stream` (the split pass, then the combine pass);
-// returns cudaGetLastError() or -1 for a (dtype, dh) without an
-// instantiation.  strides holds the element strides of dims 0-2 of k and of
-// v (6 values; dim 3 has stride 1, rows 16-byte aligned).  The partial
-// buffers hold batch * kv_heads * ceil(t / bkv) * (heads / kv_heads)
-// (x dh for acc) floats.  The caller checks shapes, dtypes, alignment,
-// heads / kv_heads <= 8 and bkv <= 512.
+// Decode attention on `stream`, one launch; returns cudaGetLastError() or
+// -1 for a (dtype, dh) without an instantiation.  strides holds the element
+// strides of dims 0-2 of k and of v (6 values; dim 3 has stride 1, rows
+// 16-byte aligned).  The partial buffers hold batch * kv_heads * ceil(t /
+// bkv) * (heads / kv_heads) (x dh for acc) floats; `arrivals` holds batch *
+// kv_heads ints that are 0 before the call and are 0 again after it.  A
+// launch that faults midway may leave them nonzero: a process that caught
+// such an error must not reuse that buffer.  The caller checks shapes,
+// dtypes, alignment, heads / kv_heads <= 8 and bkv <= 512.
 extern "C" int decode_attention_fwd(
     int dtype, int dh, const void* q, const void* k, const void* v, void* o,
     const int* q_pos, const int* k_pos, float* m_part, float* l_part,
-    float* acc_part, const long long* strides, long long k_pos_stride,
-    int batch, int heads, int kv_heads, int t, int bkv, int window,
-    float scale, cudaStream_t stream) {
+    float* acc_part, int* arrivals, const long long* strides,
+    long long k_pos_stride, int batch, int heads, int kv_heads, int t,
+    int bkv, int window, float scale, cudaStream_t stream) {
   DecodeParams p;
-  p.q = q; p.k = k; p.v = v;
+  p.q = q; p.k = k; p.v = v; p.o = o;
   p.q_pos = q_pos; p.k_pos = k_pos;
   p.m_part = m_part; p.l_part = l_part; p.acc_part = acc_part;
+  p.arrivals = arrivals;
   for (int i = 0; i < 3; ++i) {
     p.ks[i] = strides[i];
     p.vs[i] = strides[3 + i];
@@ -1097,8 +1302,8 @@ extern "C" int decode_attention_fwd(
   p.heads = heads; p.kv_heads = kv_heads; p.t = t; p.bkv = bkv;
   p.nsplit = (t + bkv - 1) / bkv;
   p.window = window; p.scale = scale;
-  if (dtype == 0) return decode_dh<float>(p, o, batch, dh, stream);
-  if (dtype == 1) return decode_dh<__nv_bfloat16>(p, o, batch, dh, stream);
+  if (dtype == 0) return decode_dh<float>(p, batch, dh, stream);
+  if (dtype == 1) return decode_dh<__nv_bfloat16>(p, batch, dh, stream);
   return -1;
 }
 

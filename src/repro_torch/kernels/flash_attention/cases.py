@@ -41,12 +41,14 @@ FLASH_SWEEP = (
 
 #: decode sweep: (B, H, Kv, T, wrap, per-row fill or None, window) — empty
 #: slots, a row of one key, a wrapped ring, a window over it, T not a
-#: multiple of any split
+#: multiple of any split, and a row that admits no key beside rows that
+#: leave most splits empty
 DECODE_SWEEP = (
     (3, 8, 2, 300, 0, (300, 150, 1), 0),
     (4, 32, 8, 1000, 7, (1000, 600, 300, 50), 100),
     (2, 4, 4, 129, 0, None, 0),
     (1, 8, 1, 64, 5, None, 0),
+    (3, 16, 4, 1100, 0, (0, 70, 1100), 0),
 )
 
 

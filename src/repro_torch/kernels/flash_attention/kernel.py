@@ -12,8 +12,12 @@ The kernels are compiled by ``nvcc`` at the first launch
 (``repro_torch._build``) and called through ``ctypes`` on PyTorch's current
 stream.  CPU tensors run the plain versions in ``ref.py``; CUDA tensors
 launch the kernel, or raise.  ``flash.launches`` and ``decode.launches``
-count the calls that launched a kernel (a decode call is two launches, the
-split pass and the combine pass, and counts once).
+count the calls that launched a kernel; each call is one CUDA launch.
+
+``decode`` keeps the port's one piece of state that persists across calls:
+an int32 arrival counter per (row, kv head) on each device (``_arrivals``),
+0 between calls, with which the decode kernel's last block of a pair finds
+itself and combines the pair's partials.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -43,14 +47,19 @@ BKV_GRID = (64, 128, 256, 512)
 # 0.158 (128 x 64), 0.158 (64 x 64) and 0.224 ms (64 x 128)); float32
 # prefill 64 x 64 (1.60 ms against 1.79-2.52 ms, timed in bf16 when bf16
 # ran the FMA kernel too); decode 128-slot chunks, 32 splits of a
-# 4096-slot cache, 2048 blocks at 8 rows x 8 kv heads (0.044 ms against
-# 0.051 (64), 0.059 (256) and 0.089 ms (512))
+# 4096-slot cache, two a block: 1024 blocks at 8 rows x 8 kv heads (0.0237
+# ms against 0.0301 (64), 0.0295 (256) and 0.0436 ms (512))
 FLASH_DEFAULT = {torch.float32: (64, 64), torch.bfloat16: (128, 128)}
 BKV = 128
 HEAD_DIMS = (16, 32, 64, 128)
 #: query heads per kv head the decode kernel holds (its register tile)
 MAX_GROUP = 8
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the decode kernel's arrival counters, one buffer a device index
+_ARRIVALS: Dict[int, torch.Tensor] = {}
+#: buffers outgrown: kept, since a captured CUDA graph may still use one
+_OUTGROWN: List[torch.Tensor] = []
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,7 +71,7 @@ def _library():
         + [ctypes.c_float, c_void_p])
     lib.flash_attention_fwd.restype = c_int
     lib.decode_attention_fwd.argtypes = (
-        [c_int] * 2 + [c_void_p] * 10 + [c_ll] + [c_int] * 6
+        [c_int] * 2 + [c_void_p] * 11 + [c_ll] + [c_int] * 6
         + [ctypes.c_float, c_void_p])
     lib.decode_attention_fwd.restype = c_int
     lib.attention_error_string.argtypes = [c_int]
@@ -189,6 +198,35 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _arrivals(device: torch.device, count: int) -> torch.Tensor:
+    """At least ``count`` int32 arrival counters on ``device``, all 0.
+
+    The decode kernel counts each (row, kv head)'s split blocks in as they
+    finish, and the last one sets its counter back to 0, so the buffer is 0
+    between calls and is made (zeroed) once per device.  It grows only
+    outside a CUDA graph capture (a capture may not allocate state that
+    outlives it); an outgrown buffer is kept, not freed, because a graph
+    captured earlier still points at it.  A launch that faults midway may
+    leave counters nonzero: the wrapper raises, and a process that caught
+    that error must not call ``decode`` again on that device.  Decode calls
+    on one device must not overlap on two streams: they share the buffer.
+    """
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    buf = _ARRIVALS.get(index)
+    if buf is None or buf.numel() < count:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"decode needs {count} arrival counters on {device} and "
+                f"cannot allocate them while a CUDA graph is captured: "
+                f"call decode once at this batch size and kv heads first")
+        if buf is not None:
+            _OUTGROWN.append(buf)
+        buf = _ARRIVALS[index] = torch.zeros(
+            max(count, 1024), dtype=torch.int32, device=device)
+    return buf
+
+
 def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_pos: torch.Tensor, k_pos: torch.Tensor, *, window: int = 0,
            bkv: int = BKV) -> torch.Tensor:
@@ -199,7 +237,10 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     layout: slot order is arbitrary (a wrapped ring arrives as stored), -1
     marks an empty slot, ``window > 0`` keeps ``q_pos - k_pos < window``.
     k and v are read through their strides (rows 16-byte aligned, as views
-    of a cache tensor are); q must be contiguous.
+    of a cache tensor are); q must be contiguous.  One CUDA launch: the
+    cache is split into chunks of ``bkv`` slots, and the last block of each
+    (row, kv head) combines the chunks' partials in order, found through
+    the arrival counters of ``_arrivals``.
     """
     if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"decode takes q (B, 1, H, Dh) and k, v (B, T, Kv, "
@@ -238,6 +279,7 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        device=device)
     acc = torch.empty(b * kv * nsplit * g * dh, dtype=torch.float32,
                       device=device)
+    arrivals = _arrivals(device, b * kv)
     q_pos, k_pos = _positions(q_pos), _positions(k_pos)
     strides = (ctypes.c_longlong * 6)(*k.stride()[:3], *v.stride()[:3])
     lib = _library()
@@ -246,7 +288,8 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             DTYPE_CODES[q.dtype], dh, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
             part.data_ptr(), part[b * kv * nsplit * g:].data_ptr(),
-            acc.data_ptr(), strides, k_pos.stride(0), b, h, kv, t, bkv,
+            acc.data_ptr(), arrivals.data_ptr(), strides, k_pos.stride(0),
+            b, h, kv, t, bkv,
             int(window), 1.0 / math.sqrt(dh),
             torch.cuda.current_stream().cuda_stream)
     _check_launch("decode", err)

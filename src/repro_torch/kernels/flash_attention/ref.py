@@ -14,6 +14,11 @@ Layouts, as the reference's ``kernels/flash_attention/ref.py``:
     arrays with -1 = empty/pad;
   * ``decode_ref`` (serving decode): the model-native layout, q (B, 1, H, Dh),
     k/v (B, T, Kv, Dh) ring-buffer cache, q_pos (B, 1), k_pos (B, T).
+
+``decode_split`` mirrors the decode kernel's decomposition in plain
+PyTorch (the cache cut into chunks of ``bkv`` slots, an empty chunk skipped,
+the partials combined in chunk order), so that the CPU tests show the
+algorithm right, not only the kernel.
 """
 
 from __future__ import annotations
@@ -94,3 +99,45 @@ def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     -> like q."""
     return attend_torch(q, k, v, q_pos, k_pos, n_kv_heads=k.shape[2],
                         causal=True, window=window)
+
+
+def decode_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                 window: int = 0, bkv: int = 128) -> torch.Tensor:
+    """``decode_ref``'s function as the decode kernel computes it.
+
+    Each chunk of ``bkv`` cache slots (its boundaries depend on T alone)
+    gives a partial (m, l, acc) of each query head: the max of its admitted
+    logits, the sum of their exps and the exps (rounded to v's dtype) times
+    v.  A chunk that admits no key of a row gives m = -1e30, l = 0 and no
+    acc.  The combine takes the chunks in order, skips the empty ones and
+    rescales the rest to the overall max.  A row that admits no key is 0,
+    where ``decode_ref`` returns the uniform average (both garbage by the
+    reference's contract)."""
+    b, _, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, kv, g, dh).float()
+    mask = admitted(q_pos, k_pos, causal=True, window=window)[:, 0]  # (B, T)
+    scale = 1.0 / math.sqrt(dh)
+    parts = []
+    for t0 in range(0, t, bkv):
+        part = slice(t0, min(t0 + bkv, t))
+        ok = mask[:, part]
+        logits = torch.einsum("bkgd,btkd->bkgt", qg, k[:, part].float())
+        logits = (logits * scale).masked_fill(~ok[:, None, None],
+                                              float("-inf"))
+        m = logits.amax(-1).clamp_min(NEG_INF)             # (B, Kv, G)
+        e = torch.exp(logits - m[..., None])               # refused: 0
+        acc = torch.einsum("bkgt,btkd->bkgd", e.to(v.dtype).float(),
+                           v[:, part].float())
+        parts.append((ok.any(-1)[:, None, None], m, e.sum(-1), acc))
+    mx = torch.stack([m for _, m, _, _ in parts]).amax(0)
+    l_sum = torch.zeros_like(mx)
+    out = torch.zeros(b, kv, g, dh, dtype=torch.float32, device=q.device)
+    for live, m, l_part, acc in parts:
+        w = torch.exp(m - mx)
+        l_sum = torch.where(live, l_sum + l_part * w, l_sum)
+        out = torch.where(live[..., None], out + acc * w[..., None], out)
+    out = out / l_sum.clamp_min(1e-30)[..., None]
+    return out.reshape(b, 1, h, dh).to(q.dtype)

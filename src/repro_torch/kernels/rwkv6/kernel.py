@@ -1,12 +1,17 @@
-"""The chunked RWKV6 WKV: the wrapper of the CUDA C++ kernel ``csrc/rwkv6.cu``.
+"""The RWKV6 WKV: the wrapper of the CUDA C++ kernels ``csrc/rwkv6.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/rwkv6/kernel.py::
 wkv_chunked_pallas`` and computes what the model's WKV computes
 (``repro/models/rwkv.py::wkv_chunked``): it takes an initial state and
 returns the final one, and any S >= 1 (a ragged last chunk is masked in the
 kernel), so a 2047-token prompt and the one-token decode step both run it.
-The note at the top of the CUDA source says what bounds it on the H100 and
-what its design does about it.
+One token runs ``wkv_step_kernel``; more run three kernels parallel over
+the chunks (each chunk's state increment, the scan over the chunks, each
+chunk's output) through a float32 scratch of B H ceil(S / chunk) Dh Dv
+floats that the wrapper allocates.  ``ref.wkv_step`` and
+``ref.wkv_chunk_parallel`` mirror that arithmetic in plain PyTorch.  The
+note at the top of the CUDA source says what bounds it on the H100 and what
+its design does about it.
 
 One deliberate difference from the JAX package: the state is updated in
 place.  Where the reference returns a new final state, ``wkv`` writes it
@@ -18,7 +23,8 @@ tensor.
 The kernel is compiled by ``nvcc`` at the first launch (``repro_torch._build``)
 and called through ``ctypes`` on PyTorch's current stream.  CPU tensors run
 the plain version (``ref.wkv_chunked``); CUDA tensors launch the kernel, or
-raise.  ``wkv.launches`` counts the launches.
+raise.  ``wkv.launches`` counts the calls that launched the kernels, not
+the CUDA launches: a call of S > 1 is three of them and counts once.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ HEAD_DIMS = (32, 64)
 def _library():
     lib = _build.load("rwkv6")
     c_int, c_void_p = ctypes.c_int, ctypes.c_void_p
-    lib.rwkv6_wkv_fwd.argtypes = ([c_int] * 2 + [c_void_p] * 9
+    lib.rwkv6_wkv_fwd.argtypes = ([c_int] * 2 + [c_void_p] * 11
                                   + [c_int] * 3 + [c_void_p])
     lib.rwkv6_wkv_fwd.restype = c_int
     lib.rwkv6_error_string.argtypes = [c_int]
@@ -119,6 +125,13 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     device=r.device).transpose(1, 2)
     out = state if state is not None else torch.empty(
         b, h, dh, dh, dtype=torch.float32, device=r.device)
+    # the chunk kernels' scratch: each chunk's state increment, overwritten
+    # by the state at the chunk's start, and exp of its total decay
+    n = -(-s // chunk)
+    scratch = (None, None) if s == 1 else (
+        torch.empty(b * h * n * dh * dh, dtype=torch.float32,
+                    device=r.device),
+        torch.empty(b * h * n * dh, dtype=torch.float32, device=r.device))
     strides = (ctypes.c_longlong * 15)(
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *w_logdecay.stride()[:3], *y.stride()[:3])
@@ -128,7 +141,9 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             chunk, dh, r.data_ptr(), k.data_ptr(), v.data_ptr(),
             w_logdecay.data_ptr(), u.data_ptr(),
             None if state is None else state.data_ptr(), out.data_ptr(),
-            y.data_ptr(), strides, b, h, s,
+            y.data_ptr(),
+            *(None if x is None else x.data_ptr() for x in scratch),
+            strides, b, h, s,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"wkv kernel launch failed: error {err} "

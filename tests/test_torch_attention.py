@@ -16,6 +16,7 @@ import torch
 import jax.numpy as jnp
 from repro.core import conformance as jax_conformance
 from repro.kernels.flash_attention import ops as jax_fa
+from repro.kernels.flash_attention import ref as jax_fa_ref
 from repro.models import attention as jax_attn
 import repro_torch.kernels  # noqa: F401
 from repro_torch.core import conformance, get_kernel
@@ -141,6 +142,50 @@ def test_decode_ref_matches_reference(case, dtype):
     _close(got, jax_fa.decode_pallas(pq, pk, pv, jqp, jkp, window=window,
                                      bkv=min(32, t), interpret=True), tol)
     assert torch.equal(K.decode(q, k, v, tq, tk, window=window), got)
+
+
+# (B, H, Kv, T, wrap, fill, window): a row that admits no key, rows filled
+# to T, a wrapped ring, a window over it, fills that leave most chunks empty
+SPLIT_CASES = [
+    (3, 4, 2, 96, 0, (0, 41, 96), 0),
+    (2, 8, 2, 128, 0, None, 0),
+    (2, 8, 2, 64, 5, None, 0),
+    (2, 8, 1, 128, 7, (128, 60), 16),
+    (3, 4, 2, 512, 0, (5, 70, 1), 0),
+]
+
+
+@pytest.mark.parametrize("bkv", [64, 128])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: f"T{c[3]}-wrap{c[4]}-w{c[6]}-"
+                                       f"fill{c[5]}")
+def test_decode_split_mirror_matches_reference(case, dtype, bkv):
+    """``ref.decode_split``, the decode kernel's decomposition (chunks of
+    bkv slots, empty chunks skipped, partials combined in chunk order),
+    against the reference's ``decode_ref`` and its Pallas decode kernel in
+    interpret mode on the rows that admit a key; a row that admits none is
+    0, as the kernel writes it."""
+    b, h, kv, t, wrap, fill, window = case
+    tol = DTYPES[dtype][3]
+    qa, ka, va, qp, kp = _decode_arrays(t + bkv, b, h, kv, t, wrap=wrap,
+                                        fill=fill)
+    (q, jq, pq), (k, jk, pk), (v, jv, pv) = (_pair(a, dtype)
+                                             for a in (qa, ka, va))
+    tq, tk = torch.from_numpy(qp), torch.from_numpy(kp)
+    got = ref.decode_split(q, k, v, tq, tk, window=window, bkv=bkv)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    live = ref.admitted(tq, tk, causal=True, window=window).any(-1).numpy()
+    assert not live.all() or fill is None or min(fill) > 0
+    assert (got.float().numpy()[~live] == 0).all()
+    jqp, jkp = jnp.asarray(qp), jnp.asarray(kp)
+    _close(got, jax_fa_ref.decode_ref(jq, jk, jv, jqp, jkp, window=window),
+           tol, live)
+    _close(got, jax_fa.decode_pallas(pq, pk, pv, jqp, jkp, window=window,
+                                     bkv=min(32, t), interpret=True), tol,
+           live)
+    _close(got, ref.decode_ref(q, k, v, tq, tk, window=window).float(), tol,
+           live)
 
 
 def test_attend_torch_matches_attend_xla_in_model_layout():

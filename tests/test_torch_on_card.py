@@ -57,6 +57,9 @@ HF_RTOL, HF_ATOL = conformance.ORACLE_TOL["hartree_fock.twoel"]
 ATTN_TOL = {torch.float32: conformance.ORACLE_TOL["attention.flash"],
             torch.bfloat16: (2e-2, 2e-2)}
 WKV_RTOL, WKV_ATOL = conformance.ORACLE_TOL["rwkv6.wkv"]
+#: the kernels of a WKV call of S > 1 (csrc/rwkv6.cu)
+WKV_CHUNK_KERNELS = ("wkv_delta_kernel", "wkv_scan_kernel",
+                     "wkv_output_kernel")
 
 pytestmark = pytest.mark.gpu
 
@@ -405,13 +408,58 @@ def test_decode_kernel_matches_plain(cuda, dtype, dh):
                                  f"T={t} wrap={wrap} {p}")
 
 
+def _cuda_kernels(fn, expect):
+    """{name: records} of the CUDA kernels of three calls of ``fn()`` under
+    ``torch.profiler``, after one call outside it.  The profiler can drop
+    records, even whole calls: the profile is taken again, up to three
+    times, until a kernel named with each string of ``expect`` shows."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        ran = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+        if all(any(n in kernel for kernel in ran) for n in expect):
+            break
+    return ran
+
+
 def test_decode_kernel_is_deterministic(cuda):
+    """Five eager calls and five replays of one captured CUDA graph give
+    the bits of the first call: the arrival counters are back at 0 after
+    every call and every replay."""
     q, k, v, qp, kp = _decode_case(8, 32, 8, 4096, 128, torch.bfloat16,
                                    cuda, fill=(4096, 3000, 2047, 1348, 700,
                                                300, 97, 1), seed=5)
     first = attn_kernel.decode(q, k, v, qp, kp)
     for _ in range(5):
         assert torch.equal(first, attn_kernel.decode(q, k, v, qp, kp))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = attn_kernel.decode(q, k, v, qp, kp)
+    for _ in range(5):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(first, out)
+    assert torch.equal(first, attn_kernel.decode(q, k, v, qp, kp))
+
+
+def test_decode_is_one_launch(cuda):
+    q, k, v, qp, kp = _decode_case(8, 32, 8, 4096, 128, torch.bfloat16,
+                                   cuda, fill=(1348, 1094, 608, 684, 146,
+                                               215, 97, 417), seed=6)
+    qp, kp = qp.to(torch.int32), kp.to(torch.int32)
+    ran = _cuda_kernels(lambda: attn_kernel.decode(q, k, v, qp, kp),
+                        ["decode_kernel"])
+    assert len(ran) == 1 and all("decode_kernel" in name and calls <= 3
+                                 for name, calls in ran.items()), ran
 
 
 def test_attention_kernels_reject_what_they_cannot_run(cuda):
@@ -452,11 +500,12 @@ def test_engine_drains_a_trace_through_the_kernels(cuda):
 # ---- the RWKV6 WKV ----------------------------------------------------------
 @pytest.mark.parametrize("dh", wkv_cases.SWEEP_DH)
 def test_wkv_kernel_matches_plain(cuda, dh):
-    """Every chunk at ragged S, S = 1 and several chunks, from
-    a given state and from zeros: y and the final state against the exact
+    """Every chunk at every S of the sweep (one token, a ragged chunk,
+    several chunks with a ragged tail, 2047 tokens) and at 130, from a
+    given state and from zeros: y and the final state against the exact
     recurrence in float32."""
     gen = torch.Generator(device=cuda).manual_seed(dh)
-    for s in wkv_cases.SWEEP_S[:-1] + (130,):
+    for s in wkv_cases.SWEEP_S + (130,):
         args, s0 = wkv_cases.draw(gen, 2, 3, s, dh, cuda)
         for start in (s0, None):
             want = wkv_ref.wkv_serial(*args, start)
@@ -472,14 +521,41 @@ def test_wkv_kernel_matches_plain(cuda, dh):
                                f"dh={dh} S={s} S0={start is not None} {p}")
 
 
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("dh", wkv_cases.SWEEP_DH)
+def test_wkv_one_token_kernel_matches_plain(cuda, dh, b):
+    """The decode step (S 1) from a random state, written in place into
+    the state it reads, against the exact recurrence."""
+    gen = torch.Generator(device=cuda).manual_seed(b * dh)
+    args, s0 = wkv_cases.draw(gen, b, 40, 1, dh, cuda)
+    want = wkv_ref.wkv_serial(*args, s0)
+    state = s0.clone()
+    got = wkv_kernel.wkv(*args, state)
+    torch.cuda.synchronize()
+    assert got[1] is state
+    wkv_cases.hold(got, want, WKV_RTOL, WKV_ATOL, f"S=1 dh={dh} B={b}")
+
+
+def test_wkv_runs_the_step_kernel_at_one_token_else_three(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for s, want in ((1, ["wkv_step_kernel"]), (130, list(WKV_CHUNK_KERNELS))):
+        args, s0 = wkv_cases.draw(gen, 2, 4, s, 64, cuda)
+        ran = _cuda_kernels(lambda: wkv_kernel.wkv(*args, s0), want)
+        assert sorted(n for n in ("wkv_step_kernel",) + WKV_CHUNK_KERNELS
+                      if any(n in kernel for kernel in ran)) == \
+            sorted(want), (s, ran)
+        assert len(ran) == len(want) and max(ran.values()) <= 3, ran
+
+
 def test_wkv_kernel_is_deterministic(cuda):
     gen = torch.Generator(device=cuda).manual_seed(3)
-    args, s0 = wkv_cases.draw(gen, 2, 40, 300, 64, cuda)
-    first = wkv_kernel.wkv(*args, s0.clone())
-    for _ in range(5):
-        again = wkv_kernel.wkv(*args, s0.clone())
-        assert torch.equal(first[0], again[0])
-        assert torch.equal(first[1], again[1])
+    for s in (300, 1):      # the chunk kernels, the one-token kernel
+        args, s0 = wkv_cases.draw(gen, 2, 40, s, 64, cuda)
+        first = wkv_kernel.wkv(*args, s0.clone())
+        for _ in range(5):
+            again = wkv_kernel.wkv(*args, s0.clone())
+            assert torch.equal(first[0], again[0])
+            assert torch.equal(first[1], again[1])
 
 
 def test_wkv_kernel_rejects_what_it_cannot_run(cuda):

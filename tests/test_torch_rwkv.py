@@ -160,6 +160,47 @@ def test_wrapper_rejects_what_it_cannot_run():
         wkv_kernel.wkv(*(x[:, :, :0] for x in (r, k, v, lw)), u)
 
 
+# ---- the plain mirrors of the kernels' decomposition -----------------------
+MIRROR_S = (1, 2, 15, 16, 17, 63, 64, 128, 200)
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("s", MIRROR_S)
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_mirrors_of_the_kernels_match_the_reference(chunk, s, dh):
+    """``wkv_chunk_parallel`` (the three chunk kernels: state increments,
+    the scan, the outputs with the triangle factored at sub-chunk edges)
+    and, at S = 1, ``wkv_step`` (the one-token kernel), from a random
+    state, against the reference's exact recurrence, its chunked form where
+    S is a multiple of the chunk, and its Pallas kernel in interpret mode
+    from a zero state there.  The log-decays reach -e a step, so that at
+    chunk 64 a chunk's cumulative decay passes float32's exp range: an
+    intra-chunk factor split as exp(lw_before) * exp(-lw_cum) would be inf
+    here."""
+    args, s0 = _inputs(seed=s + dh, b=1, h=2, s=s, dh=dh)
+    jargs = [jnp.asarray(a) for a in args]
+    want_y, want_s = jax_rwkv.wkv_serial(*jargs, jnp.asarray(s0))
+    state = torch.from_numpy(s0)
+    got_y, got_s = ref.wkv_chunk_parallel(*_t(args), state, chunk)
+    assert got_y.shape == (1, 2, s, dh)
+    _close(got_y, want_y)
+    _close(got_s, want_s)
+    np.testing.assert_array_equal(state.numpy(), s0)   # inputs untouched
+    if s == 1:
+        step_y, step_s = ref.wkv_step(*_t(args), state)
+        _close(step_y, want_y)
+        _close(step_s, want_s)
+    if chunk == 64 and s >= 64:
+        lw_cum = np.cumsum(args[3][:, :, :64], axis=2)
+        assert np.isinf(np.exp(-lw_cum.astype(np.float32))).any()
+    if s % chunk == 0:
+        cy, cs = jax_rwkv.wkv_chunked(*jargs, jnp.asarray(s0), chunk)
+        _close(got_y, cy)
+        _close(got_s, cs)
+        zero_y, _ = ref.wkv_chunk_parallel(*_t(args), None, chunk)
+        _close(zero_y, wkv_pallas(*jargs, chunk=chunk, interpret=True))
+
+
 # ---- the registry cell -----------------------------------------------------
 def test_registry_cell_on_the_conformance_case():
     k = get_kernel("rwkv6.wkv")
