@@ -37,7 +37,14 @@ chunked WKV kernel, 32 launches a call.
   4. timing:    CUDA-event medians of the kernel, its plain version and the
                 one PyTorch call computing the same function (where there
                 is one), beside the least time the card could take, and
-                the host's time to enqueue one call; for Hartree-Fock also
+                the host's time to enqueue one call; for miniBUDE also
+                the device time of each of its CUDA kernels (the pair table
+                and the energies), a second call bit-identical to the
+                first, every (ppwi, split) point checked and timed, bm1's
+                atoms at 16 x its poses timed at every point, and the SASS
+                instructions an interaction takes (its bound from
+                ``minibude/ops.py::least_flops``, Eq. 3's GFLOP/s beside
+                it); for Hartree-Fock also
                 the device time of each of a build's three kernels, the
                 integrals its tiling evaluates against the distinct ones
                 (at most 1.10x), and every tunable point timed;
@@ -98,6 +105,8 @@ import argparse
 import dataclasses
 import gc
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -111,6 +120,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import _build  # noqa: E402
+from repro_torch import _sass  # noqa: E402
 import repro_torch.kernels  # noqa: E402,F401  (registers the kernels)
 from repro_torch.core import (  # noqa: E402
     Efficiency, get_kernel, max_abs_err, phi_bar, time_call)
@@ -133,6 +143,8 @@ from repro_torch.training.serve_step import (  # noqa: E402
 from repro_torch.kernels.hartree_fock import kernel as hf_kernel  # noqa: E402
 from repro_torch.kernels.hartree_fock import ops as hf_ops  # noqa: E402
 from repro_torch.kernels.hartree_fock import ref as hf_ref  # noqa: E402
+from repro_torch.kernels.minibude import kernel as bude_kernel  # noqa: E402
+from repro_torch.kernels.minibude import ops as bude_ops  # noqa: E402
 from repro_torch.kernels.minibude.ops import make_deck  # noqa: E402
 from repro_torch.kernels.rwkv6 import cases as wkv_cases  # noqa: E402
 from repro_torch.kernels.rwkv6 import kernel as wkv_kernel  # noqa: E402
@@ -153,6 +165,16 @@ KERNELS = SLICE1 + ("minibude.fasten", "hartree_fock.twoel")  # registry
 SLAB = "hartree_fock.twoel_slab"  # the slab wrapper, outside the registry
 RECORDS = KERNELS + (SLAB,)
 HF_TOL = conformance.ORACLE_TOL["hartree_fock.twoel"]
+BUDE_TOL = conformance.ORACLE_TOL["minibude.fasten"]
+#: the CUDA kernels of a miniBUDE call (csrc/minibude.cu): the pair table
+#: and the energies
+BUDE_STAGES = ("bude_pair_kernel", "fasten_kernel")
+BUDE_MORE_POSES = 16   # bm1's atoms at 16 x its poses: 1,048,576, timed
+BUDE_ATOMS = (BUDE["natpro"], BUDE["natlig"])
+#: miniBUDE before this design (the first port's kernel: a thread's poses
+#: against every atom pair, ppwi 1, block 128): ms by time_call at bm1
+#: (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
+BUDE_EARLIER_MS = 4.210879802703857
 #: the three kernels of one Hartree-Fock build (csrc/hartree_fock.cu)
 HF_STAGES = ("pair_table_kernel", "eri_kernel", "fock_gather_kernel")
 
@@ -375,6 +397,66 @@ def hartree_fock_report(c: Case, card: str) -> None:
           + f"; default team {hf_kernel.TEAM}, tile {hf_kernel.TILE}")
 
 
+def bude_report(c: Case, card: str, seed: int) -> None:
+    """miniBUDE at bm1: each CUDA kernel's device time, a second call
+    bit-identical to the first (else it fails), every (ppwi, split) point
+    against the plain version and timed, bm1's atoms at 16 x its poses
+    timed at every point, and the SASS instructions an interaction takes in
+    each instantiation of the energy loop."""
+    fn = bude_kernel.fasten
+    found = kernels_run(lambda: fn(*c.args), BUDE_STAGES, BUDE_STAGES)
+    if set(found) != set(BUDE_STAGES):
+        fail(f"miniBUDE: the profile shows {sorted(found)}, not "
+             f"{BUDE_STAGES}")
+    print(f"miniBUDE device ms by kernel (torch.profiler) on {card}: "
+          + ", ".join(f"{k} {ms:.4f} ({n} a call)"
+                      for k, (ms, n) in found.items()))
+    first = fn(*c.args)
+    if not torch.equal(first, fn(*c.args)):
+        fail("miniBUDE: a second call differs from the first")
+    print("miniBUDE: a second call is bit-identical to the first")
+    want = c.plain(*c.args)
+    points = list(get_kernel(c.record).tunable_space("cuda").points())
+    sweep = {}
+    for pt in points:
+        key = f"ppwi {pt['ppwi']} split {pt['split']}"
+        max_abs_err(fn(*c.args, **pt), want, *BUDE_TOL, f"miniBUDE at {key}")
+        sweep[key] = time_call(fn, *c.args, iters=ITERS, **pt) * 1e3
+    print(f"miniBUDE points at bm1, each within {BUDE_TOL} of the plain "
+          f"version, ms (time_call) on {card}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sweep.items())
+          + f"; fastest {min(sweep, key=sweep.get)}; default ppwi "
+          f"{bude_kernel.PPWI} split {bude_kernel.SPLIT}; the earlier kernel "
+          f"{BUDE_EARLIER_MS:.4f}")
+    big = make_deck(BUDE["natpro"], BUDE["natlig"],
+                    BUDE_MORE_POSES * BUDE["nposes"], seed=seed,
+                    device=c.args[0].device)
+    more = {}
+    for pt in points:
+        out = fn(*big, **pt)
+        if out.shape != (big[4].shape[1],) or not bool(
+                torch.isfinite(out).all()):
+            fail(f"miniBUDE at {BUDE_MORE_POSES} x the poses, {pt}: "
+                 f"{tuple(out.shape)} or non-finite values")
+        more[f"ppwi {pt['ppwi']} split {pt['split']}"] = time_call(
+            fn, *big, iters=ITERS, **pt) * 1e3
+    print(f"miniBUDE at bm1's atoms and {big[4].shape[1]} poses, ms "
+          f"(time_call) on {card}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in more.items())
+          + f"; fastest {min(more, key=more.get)}")
+    for name, loops in _sass.per_marker(_build.library_path("minibude"),
+                                        "fasten_kernel").items():
+        m = re.search(r"ILi(\d+)E", name)
+        what = f"ppwi {m[1]}" if m else name
+        print(f"fasten_kernel<{what}> innermost loops (SASS, _sass.py): "
+              + "; ".join(f"{lp['instructions']} instructions, "
+                          f"{lp['markers']} MUFU.RSQ, {lp['per_marker']:.2f} "
+                          f"a sqrtf" for lp in loops))
+    tools = [t for t in ("ncu", "nsys") if shutil.which(t) or Path(
+        _build.nvcc_path()).with_name(t).exists()]
+    print(f"profilers on this machine: {tools or 'neither ncu nor nsys'}")
+
+
 # ---- slice 3: attention and serving ----------------------------------------
 def graph_ms(fn: Callable[[], Any], iters: int = ITERS) -> float:
     """Device milliseconds per call of ``fn()``: one call captured in a CUDA
@@ -422,15 +504,16 @@ def device_profile(fn: Callable[[], Any], top: int = 6, match: str = ""):
 
 
 def kernels_run(fn: Callable[[], Any], names, expect,
-                tries: int = 3) -> Dict[str, Tuple[float, int]]:
+                tries: int = 5) -> Dict[str, Tuple[float, int]]:
     """{name: (device ms a call, launches a call)} of the kernels that
     ``fn()`` runs, each of whose profiled names must hold one of ``names``
-    (else it fails), from three calls under ``torch.profiler`` after one
-    call outside it.  The profiler here can drop records, even whole calls:
-    a kernel seen one to three times counts as one launch a call, and the
-    profile is taken again, up to ``tries`` times, until every name of
-    ``expect`` shows."""
-    calls = 3
+    (else it fails), from ten calls under ``torch.profiler`` after one
+    call outside it.  The profiler here can drop records, even whole calls,
+    and once dropped every record of three calls of a 5 us kernel three
+    times over: a kernel seen one to ten times counts as one launch a
+    call, and the profile is taken again, up to ``tries`` times, until
+    every name of ``expect`` shows."""
+    calls = 10
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -1134,7 +1217,8 @@ def main() -> None:
                                 tuple(u.shape)))
     deck = make_deck(**BUDE, seed=args.seed, device=dev)
     bude = [registry_case("minibude.fasten", "minibude.fasten", deck, {},
-                          (BUDE["nposes"],))]
+                          (BUDE["nposes"],),
+                          bude_ops.least_flops(*BUDE_ATOMS, BUDE["nposes"]))]
     hf, hf_inputs = [], {}
     for n, ngauss in HF_CASES:
         pos = hf_ref.helium_lattice(n, device=dev)
@@ -1235,7 +1319,10 @@ def main() -> None:
         bound_ms = max(t_bytes, t_ops)
         gflops = c.flops / ms / 1e6
         if c.record in ("minibude.fasten",):
-            fom = f"{gflops:.0f} GFLOP/s by Eq. 3"
+            fom = (f"{gflops:.0f} GFLOP/s by Eq. 3 ({c.flops:.6g} flops); "
+                   f"least flops {c.least_flops:.6g} at "
+                   f"{bude_ops.INTERACTION_FLOPS} an interaction, "
+                   f"{c.least_flops / ms / 1e6:.0f} GFLOP/s")
         elif c.record.startswith("hartree_fock"):
             # wall clock only: the registry's 120 N^4 G^4 counts the gather
             # form's work, which the kernel does not do, so it is no rate
@@ -1259,7 +1346,7 @@ def main() -> None:
         print(f"{c.label}: {ms:.4f} ms ({fom}, {bound_ms / ms:.1%} of the "
               f"{bound_ms:.4f} ms bound), plain {plain_ms:.4f} ms, library "
               f"{lib_txt}, host enqueue {host_ms:.4f} ms a call")
-        if c.record.startswith("hartree_fock"):
+        if c.record.startswith(("hartree_fock", "minibude")):
             if bound_ms > ms:
                 fail(f"{c.label}: {bound_ms / ms:.1%} of the bound: "
                      f"least_flops no longer counts the kernel's work")
@@ -1269,6 +1356,7 @@ def main() -> None:
             "library_ms": library_ms, "gflops_per_s": gflops,
             "max_abs_err": errs[c.label]}
 
+    bude_report(bude[0], card, args.seed)
     for c in hf + slabs:
         hartree_fock_report(c, card)
 

@@ -21,6 +21,30 @@ from repro_torch.kernels.minibude import ref
 #: per grid step), so GFLOP/s compare across the two packages whatever
 #: ``ppwi`` the CUDA kernel runs with
 FLOPS_PPWI = 128
+#: flops of one (ligand atom, protein atom, pose) interaction with the pair
+#: constants hoisted: 3 differences, a squared norm (3 products, 2 sums), a
+#: sqrt, distbb, then steric 1 product, charge and desolvation 3 each
+#: (distbb times a constant, 1 minus it, times the pair's factor) and 3 sums
+#: into the pose's energy; the clamps are selects
+INTERACTION_FLOPS = 20
+#: a ligand atom moved under a pose: 3 rows of 3 products and 3 sums
+LIGAND_FLOPS = 18
+#: a pose's transform (3 sines, 3 cosines, 16 products, 4 sums) and the 0.5
+POSE_FLOPS = 27
+#: a pair's constants: radij, its reciprocal and -2 HARDNESS times it, the
+#: charge and CNSTNT times it, the desolvation sum, 1 / distdslv
+PAIR_FLOPS = 7
+
+
+def least_flops(natpro: int, natlig: int, nposes: int) -> float:
+    """The fewest flops a call needs with the pair constants hoisted, the
+    count of the bound (an FMA two): every interaction, every ligand atom
+    under every pose, every pose's transform, and the pair table once.
+    About 2/3 of Eq. 3's count, which has 30 flops an interaction and
+    ``FLOPS_PPWI`` poses a work-group (``_flops_model``)."""
+    return float(INTERACTION_FLOPS * natpro * natlig * nposes
+                 + LIGAND_FLOPS * natlig * nposes + POSE_FLOPS * nposes
+                 + PAIR_FLOPS * natpro * natlig)
 
 
 def make_deck(natpro: int = 938, natlig: int = 26, nposes: int = 65536,
@@ -52,7 +76,8 @@ _k = register_kernel("minibude.fasten", native="cuda",
                      doc="miniBUDE fasten energy kernel (paper Eq. 3 FoM)")
 _k.add_backend("torch", ref.fasten)
 _k.add_backend("cuda", K.fasten, probe=cuda_probe)
-# the pose tail is masked, so every point is valid for every P
-_k.declare_tunables("cuda", ppwi=K.PPWI_GRID, block=K.BLOCK_GRID)
+# the pose tail and empty protein slices are masked, so every point is
+# valid for every P, natpro and natlig
+_k.declare_tunables("cuda", ppwi=K.PPWI_GRID, split=K.SPLIT_GRID)
 # O(natlig * natpro) flops per pose over O(1) bytes per pose
 _k.declare_roofline_contract(("torch", "cuda"), bound="compute")

@@ -13,6 +13,12 @@ rows (hbtype, radius, hphb, elsc).
 wrapper in ``kernel.py`` runs for CPU tensors.  The reference's
 ``lax.scan`` over ligand atoms is a Python loop here.
 
+``pair_table`` and ``fasten_sliced`` mirror the CUDA kernel's design on the
+CPU (``csrc/minibude.cu``): the pose-independent pair constants with their
+folds, and the energy summed per protein slice and then over the slices in
+order.  The tests hold them against the reference; nothing on the main path
+calls them.
+
 The constants and ``deck_arrays`` (the numpy draws behind ``make_deck``)
 are the port's own copies: the reference module imports jax.
 """
@@ -159,3 +165,93 @@ def fasten(protein_pos: torch.Tensor, protein_par: torch.Tensor,
 
         etot = etot + torch.sum(e_steric + e_chrg + dslv_e, dim=0)
     return etot * HALF
+
+
+#: the columns of ``pair_table``: (radij, 1 / radij, elcdst, elcdst1,
+#: distdslv, 1 / distdslv, CNSTNT * charge, desolvation)
+PAIR_COLUMNS = ("radij", "r_radij", "elcdst", "elcdst1", "distdslv",
+                "r_distdslv", "chrg", "dslv")
+
+
+def pair_table(protein_par: torch.Tensor,
+               ligand_par: torch.Tensor) -> torch.Tensor:
+    """(natlig, natpro, 8): the pose-independent constants of every (ligand
+    atom, protein atom) pair, as the kernel's ``pair_constants`` folds
+    them (columns ``PAIR_COLUMNS``).
+
+    The charge is ``-|chrg_init|`` for type E, times CNSTNT; the
+    desolvation factor is 0 where its condition can never hold (protein
+    ``hphb == 0``, or ``distdslv = -FLOAT_MAX``).  Both folds are exact:
+    ``csrc/minibude.cu``'s note proves it and the tests check it.
+    """
+    p_hb, p_rad, p_hphb, p_elsc = protein_par[None, :, :].unbind(-1)
+    l_hb, l_rad, l_hphb, l_elsc = ligand_par[:, None, :].unbind(-1)
+    shape = (ligand_par.shape[0], protein_par.shape[0])
+
+    def const(v):
+        return protein_par.new_full(shape, v)
+
+    radij = p_rad + l_rad
+    both_f = (p_hb == HBTYPE_F) & (l_hb == HBTYPE_F)
+    type_e = (p_hb == HBTYPE_E) | (l_hb == HBTYPE_E)
+    p_ltz, p_gtz = p_hphb < ZERO, p_hphb > ZERO
+    l_ltz, l_gtz = l_hphb < ZERO, l_hphb > ZERO
+    p_hphb_s = torch.where(p_ltz & l_gtz, -p_hphb, p_hphb)
+    l_hphb_s = torch.where(p_gtz & l_ltz, -l_hphb, l_hphb)
+    distdslv = torch.where(
+        p_ltz, torch.where(l_ltz, const(NPNPDIST), const(NPPDIST)),
+        torch.where(l_ltz, const(NPPDIST), const(-FLOAT_MAX)))
+    chrg_init = l_elsc * p_elsc
+    chrg = torch.where(type_e, -torch.abs(chrg_init), chrg_init) * CNSTNT
+    dslv = torch.where((p_hphb != ZERO) & (distdslv != -FLOAT_MAX),
+                       p_hphb_s + l_hphb_s, const(ZERO))
+    # reciprocal(): the correctly rounded 1 / x, as ``ONE / x`` computes it
+    return torch.stack([
+        radij, radij.reciprocal(),
+        torch.where(both_f, const(FOUR), const(TWO)),
+        torch.where(both_f, const(QUARTER), const(HALF)),
+        distdslv, distdslv.reciprocal(), chrg, dslv], dim=-1)
+
+
+def fasten_sliced(protein_pos: torch.Tensor, protein_par: torch.Tensor,
+                  ligand_pos: torch.Tensor, ligand_par: torch.Tensor,
+                  poses: torch.Tensor, *, ppwi: int,
+                  split: int) -> torch.Tensor:
+    """``fasten`` in the kernel's order and form: the energies of poses
+    padded with zero poses to whole groups of ``32 * ppwi`` (the tail is
+    dropped), each pose's sum taken per protein slice
+    ``[w * natpro // split, (w + 1) * natpro // split)`` over its atoms,
+    then over ligand atoms, then over the slices in order, from
+    ``pair_table``'s constants, each term as the kernel's clamp (the
+    steric term as ``-2 HARDNESS / radij * min(distbb, 0)``).  The kernel
+    stages a long slice in chunks; each chunk goes on from where the last
+    left off, so the order, and this mirror, are the same."""
+    if ppwi < 1 or split < 1:
+        raise ValueError(f"ppwi and split are >= 1, not {ppwi}, {split}")
+    natpro, natlig = protein_pos.shape[0], ligand_pos.shape[0]
+    nposes = poses.shape[1]
+    group = 32 * ppwi
+    padded = torch.zeros((6, -(-nposes // group) * group), dtype=poses.dtype,
+                         device=poses.device)
+    padded[:, :nposes] = poses
+    m = pose_transforms(padded)                      # (P', 3, 4)
+    table = pair_table(protein_par, ligand_par)     # (natlig, natpro, 8)
+    total = None
+    for w in range(split):
+        lo, hi = w * natpro // split, (w + 1) * natpro // split
+        etot = torch.zeros(padded.shape[1], dtype=poses.dtype,
+                           device=poses.device)
+        for il in range(natlig):
+            lpos = (torch.einsum("pij,j->pi", m[:, :, :3], ligand_pos[il, :3])
+                    + m[:, :, 3])                    # (P', 3)
+            (radij, r_radij, _, elcdst1, _, r_distdslv, chrg,
+             dslv) = table[il, lo:hi].T[..., None]   # each (n, 1)
+            d = lpos.T[None, :, :] - protein_pos[lo:hi, :3, None]
+            distbb = torch.sqrt(torch.sum(d * d, dim=1)) - radij  # (n, P')
+            steric = ((-TWO * HARDNESS * r_radij)
+                      * torch.clamp(distbb, max=ZERO))
+            charge = chrg * torch.clamp(ONE - distbb * elcdst1, ZERO, ONE)
+            desolv = dslv * torch.clamp(ONE - distbb * r_distdslv, ZERO, ONE)
+            etot = etot + torch.sum(steric + charge + desolv, dim=0)
+        total = etot if total is None else total + etot
+    return (total * HALF)[:nposes]

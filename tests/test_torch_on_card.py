@@ -135,10 +135,15 @@ def test_stencil_kernel_rejects_what_it_cannot_run(cuda):
 
 
 def test_minibude_kernel_matches_plain(cuda):
+    """Every (ppwi, split) point on ragged pose counts (none a multiple of
+    a block's poses), natpro 97 (no multiple of a split), natpro 1 (every
+    split but one slice empty) and natpro 1100, whose slices at every
+    split are longer than a block stages at a time (1024 / split rows), so
+    they run in chunks, the last one ragged."""
     space = get_kernel("minibude.fasten").tunable_space("cuda")
-    # ragged pose tails: no count below is a multiple of a block's poses
     for natpro, natlig, nposes in ((16, 4, 1), (64, 8, 1000),
-                                   (96, 16, 4099)):
+                                   (96, 16, 4099), (97, 16, 300),
+                                   (1, 4, 200), (1100, 6, 300)):
         deck = bude_ops.make_deck(natpro, natlig, nposes, seed=3,
                                   device=cuda)
         want = bude_ref.fasten(*deck)
@@ -150,6 +155,25 @@ def test_minibude_kernel_matches_plain(cuda):
             assert got.shape == (nposes,)
             torch.testing.assert_close(got, want, rtol=BUDE_RTOL,
                                        atol=BUDE_ATOL)
+
+
+@pytest.mark.parametrize("natpro", [97, 1100])
+def test_minibude_kernel_is_deterministic(cuda, natpro):
+    """No atomics in the combine: two calls give the same bits, at every
+    point, with one chunk a slice (natpro 97) and several (1100), and a
+    CUDA graph's replay gives the eager call's."""
+    deck = bude_ops.make_deck(natpro, 16, 3000, seed=5, device=cuda)
+    for p in get_kernel("minibude.fasten").tunable_space("cuda").points():
+        first = bude_kernel.fasten(*deck, **p)
+        assert torch.equal(first, bude_kernel.fasten(*deck, **p)), p
+    first = bude_kernel.fasten(*deck)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = bude_kernel.fasten(*deck)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, first)
 
 
 def test_hartree_fock_kernel_matches_plain(cuda):
@@ -239,6 +263,8 @@ def test_new_kernels_reject_what_they_cannot_run(cuda):
         bude_kernel.fasten(*deck[:4], poses_t)
     with pytest.raises(ValueError, match="launch shape"):
         bude_kernel.fasten(*deck, ppwi=3)
+    with pytest.raises(ValueError, match="launch shape"):
+        bude_kernel.fasten(*deck, split=3)
     pos4 = hf_kernel.pad4(hf_ref.helium_lattice(8, device=cuda))
     dens = hf_ref.initial_density(8, device=cuda)
     basis = hf_ref.sto_basis(3, device=cuda)
