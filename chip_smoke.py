@@ -12,8 +12,9 @@ the Hartree-Fock Fock build on the paper's two smallest helium systems
 plus the build split into four l-slabs, as a distributed caller runs it;
 then the LM serving path: granite-3-8b at full width and depth (40 layers,
 random bf16 weights from ``--seed``) served by the port's ``ServingEngine``
-(8 slots, a 4096-slot KV cache, prefill buckets 512 and 2048), whose every
-prefill runs the flash attention kernel and every decode step the
+(8 slots, a 4096-slot KV cache, prefill buckets 512 and 2048) in both KV
+layouts and both driver loops, whose every prefill runs the flash
+attention kernel and every decode step, a replay of one CUDA graph, the
 ring-buffer decode attention kernel, 40 launches a call each; then RWKV
 serving: rwkv6-3b at full width and depth (32 layers, random bf16 weights
 from ``--seed``) generating for 8 prompts of 2048 tokens as one batch
@@ -64,12 +65,30 @@ chunked WKV kernel, 32 launches a call.
                 split blocks live and empty at the serving fills and every
                 bkv point (checked, timed as a CUDA graph) are printed, with
                 the earlier kernels' times (PERF.md) beside the new ones;
-  7. serving:   16 greedy requests (prompts of 64-2048 tokens from the seed,
-                32 new tokens each) through the engine, with the attention
-                launch counts set to 0 just before and read just after:
-                they must be 40 x prefill calls and 40 x decode steps; one
-                prefill's logits against the plain attention's, and two
-                requests replayed through unbatched ``generate``; where a
+  7. serving:   one trace of 16 greedy requests (prompts of 64-2048 tokens
+                from the seed, 32 new tokens each, Poisson arrivals at 50
+                a second) through three engines: contiguous and paged
+                with ``run``, paged with ``run_threaded``, the paged ones
+                on a pool a third the contiguous footprint
+                (``PAGED_BLOCKS``), so that requests wait for pages.  Each
+                engine captures its decode step once as a CUDA graph when
+                it is built; the attention launch counts are set to 0 just
+                before the engine is built and read just after its run:
+                flash 40 x prefill calls, decode 2 x 40 (the warm-up and
+                the capture: a replay does not run the wrapper), and
+                ``decode_traces`` must be 1, every decode step a graph
+                replay.  The trace is served again on each engine under
+                ``torch.profiler``, which must show 40 decode kernels a
+                replay and 40 flash kernels a prefill.  Every slot then
+                filled from a probe trace, one engine step is profiled
+                and must run 40 decode kernels; its wall time against its
+                device time,
+                the eager step on the same inputs and the largest logit
+                difference between it and a replay, and for the paged
+                layout the gather and the scatter.  The three engines'
+                tokens must be equal, and two requests replayed through
+                unbatched ``generate`` must give them; one prefill's
+                logits against the plain attention's; where a
                 2048-bucket prefill's time goes, flash's share included;
   8. rwkv:      the WKV kernel on its conformance case (in 1) and over its
                 chunks at head dims 32 and 64, S = 1, ragged S and S = 2047
@@ -105,6 +124,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -137,7 +157,8 @@ from repro_torch.models.common import count_params  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     init_params, tree_map)
 from repro_torch.serving import (  # noqa: E402
-    ServingEngine, latency_summary, synthetic_trace)
+    RESERVED_BLOCKS, ServingEngine, gather_caches, latency_summary,
+    scatter_decode, synthetic_trace)
 from repro_torch.training.serve_step import (  # noqa: E402
     decode_step, generate, prefill)
 from repro_torch.kernels.hartree_fock import kernel as hf_kernel  # noqa: E402
@@ -185,6 +206,21 @@ ARCH = "granite-3-8b"
 SERVE = {"num_slots": 8, "cache_len": 4096, "prefill_buckets": (512, 2048)}
 REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW = 16, 64, 2048, 32
 REPLAY = 2          # requests replayed through unbatched generate
+BLOCK = 16          # the paged engines' page, the engine's default
+#: the paged engines' pool: 1.25 x the pages of ``num_slots`` requests of
+#: the trace's mean length ((MIN_PROMPT + MAX_PROMPT) / 2 + MAX_NEW
+#: tokens), plus the reserved pages: a third of the contiguous layout's
+#: footprint, sized for the mean request and not the longest, so that
+#: admission can wait for pages while a slot is free
+PAGED_BLOCKS = RESERVED_BLOCKS + math.ceil(
+    1.25 * SERVE["num_slots"]
+    * math.ceil(((MIN_PROMPT + MAX_PROMPT) // 2 + MAX_NEW) / BLOCK))
+#: the engines that serve the trace: (label, engine options, run_threaded)
+PAGED = {"cache_layout": "paged", "block_size": BLOCK,
+         "num_blocks": PAGED_BLOCKS}
+SERVE_ENGINES = (("contiguous", {"cache_layout": "contiguous"}, False),
+                 ("paged", PAGED, False),
+                 ("paged, run_threaded", PAGED, True))
 #: bfloat16 attention against its plain version: the reference's own bf16
 #: tolerance (tests/test_kernels_lm.py::test_flash_bf16)
 BF16_TOL = (2e-2, 2e-2)
@@ -208,6 +244,10 @@ WKV_TOL = conformance.ORACLE_TOL[RWKV]
 WKV_STEP = ("wkv_step_kernel",)
 WKV_CHUNKS = ("wkv_delta_kernel", "wkv_scan_kernel", "wkv_output_kernel")
 DECODE_KERNEL = "decode_kernel"   # the one launch of a decode call
+#: the kernels ATen runs for the paged gather's index_select (the pool's
+#: pages along dim 1 of a segment leaf; the scatter's one small
+#: ``tables.gather`` shares the second name)
+GATHER_KERNELS = ("indexSelect", "_scatter_gather_elementwise_kernel")
 #: the two kernels' times before this design, ms by time_call and [device
 #: ms as a CUDA graph], as chip_smoke.py measured them on an NVIDIA H100
 #: 80GB HBM3 at 700.00 W (PERF.md section 6): printed beside the new ones
@@ -689,11 +729,209 @@ def decode_report(c: AttnCase, want: torch.Tensor, card: str
     return {"splits": splits, "bkv": sweep}
 
 
-def serve(dev, seed: int) -> Dict[str, Any]:
-    """The serving path: granite-3-8b at full width and depth, 16 greedy
-    requests through the engine with the attention counts read around the
-    run; then one prefill's logits against the plain attention's, and a
-    replay through unbatched generate."""
+def engine_counts() -> Dict[str, int]:
+    return {ATTN[0]: attn_kernel.flash.launches,
+            ATTN[1]: attn_kernel.decode.launches}
+
+
+def profiled_step(fn: Callable[[], Any], n_layers: int, device_ms: float,
+                  tries: int = 5):
+    """(device ms, top kernels, decode kernels, gather ms) of one call of
+    ``fn()`` under ``torch.profiler``: the summed time of its kernels, the
+    six largest as (name, ms, calls), how many ``decode_kernel`` launches
+    it ran and the time of the kernels named in ``GATHER_KERNELS`` (the
+    paged gather's ``index_select``).
+    The profiler here can drop records: a profile that shows fewer than
+    ``n_layers`` decode kernels, or kernels that add up to less than 90%
+    of ``device_ms`` (the call's device time by CUDA events), is taken
+    again, up to ``tries`` times.  More than ``n_layers`` fails."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        decodes = sum(e.count for e in kernels if DECODE_KERNEL in e.key)
+        if decodes > n_layers:
+            fail(f"one engine step ran {decodes} {DECODE_KERNEL}s, more "
+                 f"than its {n_layers} layers")
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        if decodes == n_layers and busy >= 0.9 * device_ms:
+            break
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    gather = sum(e.self_device_time_total for e in kernels
+                 if any(g in e.key for g in GATHER_KERNELS)) / 1e3
+    return busy, [(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                  for e in ranked], decodes, gather
+
+
+def events_ms(fn: Callable[[], Any], iters: int = ITERS) -> float:
+    """Milliseconds a call of ``fn()`` between CUDA events around ``iters``
+    back-to-back calls, after one call: the device's time where ``fn``
+    only replays a graph."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def wall_ms(fn: Callable[[], Any], calls: int) -> float:
+    """Host milliseconds a call of ``fn()``, synchronised, after one call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def engine_step_report(engine: ServingEngine, cfg, card: str, label: str,
+                       seed: int) -> Dict[str, Any]:
+    """Where one engine step's time goes, with every slot active: the 8
+    requests of a probe trace admitted (8 prefills) and one step taken,
+    then the same step repeated.  Its wall time (inputs copied, the replay,
+    tokens to the host) against its device time (the replay alone between
+    CUDA events, and the kernels by torch.profiler, which must show one
+    decode kernel a layer); the eager step on the same inputs, the before
+    figure; the largest logit difference between the eager step and a
+    replay; for the paged layout the gather and the scatter, each timed
+    apart as a CUDA graph on the engine's pool and tables."""
+    ns, n = engine.num_slots, cfg.n_layers
+    probe = synthetic_trace(ns, vocab_size=cfg.vocab_size,
+                            min_prompt=MIN_PROMPT, max_prompt=MAX_PROMPT,
+                            max_new_tokens=MAX_NEW, seed=seed + 1)
+    for req in probe:
+        req.arrival_time = 0.0
+        engine.submit(req)
+    engine.step()
+    if engine.active_count() != ns:
+        fail(f"{label}: the probe left {engine.active_count()} of {ns} "
+             f"slots active")
+    out = {"step wall_ms": wall_ms(engine.decode_tokens, 10),
+           "step replay_ms": events_ms(engine.decode_logits)}
+    busy, top, decodes, gather_in_step = profiled_step(
+        engine.decode_tokens, n, out["step replay_ms"])
+    if decodes != n:
+        fail(f"{label}: a profiled engine step ran {decodes} "
+             f"{DECODE_KERNEL}s, not {n}")
+    out.update({"step device_ms": busy, "step decode_kernels": decodes,
+                # by CUDA events, which drop nothing
+                "step idle": 1 - out["step replay_ms"] / out["step wall_ms"],
+                "eager step wall_ms": wall_ms(
+                    lambda: engine.decode_logits(eager=True), 3)})
+    # the same inputs, eagerly and replayed: cuBLAS may choose other GEMM
+    # algorithms under a capture
+    eager = engine.decode_logits(eager=True)[0].float()[:, :cfg.vocab_size]
+    graphed = engine.decode_logits()[0].float()[:, :cfg.vocab_size]
+    out["eager vs replay max_abs_logit_diff"] = float(
+        (eager - graphed).abs().max())
+    out["eager vs replay same argmax"] = bool(
+        eager.argmax(-1).eq(graphed.argmax(-1)).all())
+    print(f"{label} engine step, 8 active slots (probe prompts "
+          f"{sorted(r.prompt_len for r in probe)}), on {card}: "
+          f"{out['step wall_ms']:.3f} ms wall (inputs copied, one replay, "
+          f"tokens to the host), {out['step replay_ms']:.3f} ms a replay on "
+          f"the device (CUDA events): the device idles "
+          f"{out['step idle']:.1%} of the step; {busy:.3f} ms of kernels "
+          f"(torch.profiler), {decodes} {DECODE_KERNEL}s in one profiled "
+          f"step; top "
+          f"kernels (name, ms, calls): {top}")
+    print(f"{label}: the eager decode step on the same inputs (the step "
+          f"before the capture) {out['eager step wall_ms']:.3f} ms wall; "
+          f"eager step vs replay: max abs logit difference "
+          f"{out['eager vs replay max_abs_logit_diff']:.4g}, same argmax "
+          f"{out['eager vs replay same argmax']}")
+    if engine.cache_layout == "paged":
+        geo = dict(cache_len=engine.cache_len, block_size=engine.block_size)
+        # the step's inputs, as the engine copies them before a replay
+        tables = torch.from_numpy(engine.block_tables).long().to(
+            engine.device)
+        pos = torch.from_numpy(engine.pos_buf[:, 0]).to(engine.device)
+
+        def gather():
+            return gather_caches(engine.caches, tables, cfg, num_slots=ns,
+                                 **geo)
+
+        contig = gather()
+
+        def scatter():
+            scatter_decode(engine.caches, contig, pos, tables, cfg, **geo)
+
+        out["gather ms"] = graph_ms(gather)
+        out["scatter ms"] = graph_ms(scatter)
+        out["gather ms in the step"] = gather_in_step
+        view_gb = sum(t.nbytes for c in contig["segments"]
+                      for t in c["self"].values()) / 1e9
+        del contig
+        print(f"{label}: the gather {out['gather ms']:.3f} ms and the "
+              f"scatter {out['scatter ms']:.4f} ms on the device (each its "
+              f"own CUDA graph, on the engine's pool and tables; "
+              f"{view_gb:.2f} GB of contiguous view written, "
+              f"{engine.pages_per_slot} pages of {engine.block_size} a "
+              f"slot); the gather's kernels in the profiled step "
+              f"{gather_in_step:.3f} ms ({GATHER_KERNELS})")
+    return out
+
+
+def profiled_run(engine: ServingEngine, trace: Callable[[], List[Any]],
+                 threaded: bool, n_layers: int, label: str, tries: int = 3
+                 ) -> Dict[str, int]:
+    """The trace through ``engine`` once more, under ``torch.profiler``:
+    the ``decode_kernel``s and ``flash_wgmma_kernel``s the card ran,
+    against the engine's own counts of that run.  Each graph replay must
+    run one decode kernel a layer, each prefill one flash kernel a layer,
+    and every decode step must be a replay.  The profiler here can drop
+    records: a run that shows fewer kernels is profiled again on a fresh
+    trace, up to ``tries`` times; more fails."""
+    keys = ("graph_replays", "decode_steps", "prefill_calls")
+    for _ in range(tries):
+        reqs = trace()
+        before = {k: engine.stats[k] for k in keys}
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            if threaded:
+                engine.run_threaded(reqs)
+            else:
+                engine.run(reqs)
+            torch.cuda.synchronize()
+        ran = {name: sum(e.count for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and name in e.key)
+               for name in (DECODE_KERNEL, FLASH_KERNEL)}
+        d = {k: engine.stats[k] - before[k] for k in keys}
+        want = {DECODE_KERNEL: n_layers * d["graph_replays"],
+                FLASH_KERNEL: n_layers * d["prefill_calls"]}
+        if d["graph_replays"] != d["decode_steps"]:
+            fail(f"{label}: {d['decode_steps']} decode steps but "
+                 f"{d['graph_replays']} graph replays")
+        if any(ran[k] > want[k] for k in want):
+            fail(f"{label}: the profiled run ran {ran}, more than {want}")
+        if ran == want:
+            return {**d, **ran}
+    fail(f"{label}: the profiled run ran {ran}, not {want}, in {tries} "
+         f"tries")
+
+
+def serve(dev, seed: int, card: str) -> Dict[str, Any]:
+    """The serving path: granite-3-8b at full width and depth, one trace
+    of 16 greedy requests through three engines (contiguous and paged with
+    ``run``, paged with ``run_threaded``), each with the attention counts
+    read around its construction (the decode step's capture) and its run;
+    the engines' tokens must be equal, and two requests replayed through
+    unbatched generate; then one prefill's logits against the plain
+    attention's and where a prefill's time goes."""
     cfg = get_config(ARCH)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
@@ -707,64 +945,147 @@ def serve(dev, seed: int) -> Dict[str, Any]:
           f"{n_params / 1e9:.3f}e9 parameters, {param_gb:.2f} GB in "
           f"{cfg.compute_dtype}, drawn on the card in "
           f"{time.perf_counter() - t0:.1f} s")
-    engine = ServingEngine(params, cfg, **SERVE)
-    if engine.attn_backends != {"prefill": "cuda", "decode": "cuda"}:
-        fail(f"the engine's attention on CUDA weights resolved to "
-             f"{engine.attn_backends}, not the hand-written kernels")
-    kv_gb = sum(x.nbytes for c in engine.caches["segments"]
-                for x in c["self"].values()) / 1e9
-    trace = synthetic_trace(REQUESTS, vocab_size=cfg.vocab_size,
-                            min_prompt=MIN_PROMPT, max_prompt=MAX_PROMPT,
-                            max_new_tokens=MAX_NEW, seed=seed)
-    for req in trace:
-        req.arrival_time = 0.0
-    lens = sorted(r.prompt_len for r in trace)
-    print(f"serving trace: {REQUESTS} requests at t = 0, prompts {lens}, "
-          f"{MAX_NEW} new tokens each, {SERVE}")
 
-    torch.cuda.reset_peak_memory_stats()
+    def trace():
+        return synthetic_trace(REQUESTS, vocab_size=cfg.vocab_size,
+                               min_prompt=MIN_PROMPT, max_prompt=MAX_PROMPT,
+                               max_new_tokens=MAX_NEW, seed=seed)
+
+    first = trace()
+    print(f"serving trace: {REQUESTS} requests arriving over "
+          f"{first[-1].arrival_time * 1e3:.1f} ms (Poisson, 50 a second), "
+          f"prompts {sorted(r.prompt_len for r in first)}, {MAX_NEW} new "
+          f"tokens each, {SERVE}")
+    out: Dict[str, Any] = {"param_gb": param_gb, "engines": {},
+                           "launches": {name: 0 for name in ATTN},
+                           "device_launches": {name: 0 for name in ATTN},
+                           "replays": 0}
+    tokens: Dict[str, Dict[int, List[int]]] = {}
+    for label, options, threaded in SERVE_ENGINES:
+        layout = options["cache_layout"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reqs = trace()
+        attn_kernel.flash.launches = attn_kernel.decode.launches = 0
+        t0 = time.perf_counter()
+        engine = ServingEngine(params, cfg, **SERVE, **options)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if engine.attn_backends != {"prefill": "cuda", "decode": "cuda"}:
+            fail(f"{label}: the engine's attention on CUDA weights resolved "
+                 f"to {engine.attn_backends}, not the hand-written kernels")
+        t0 = time.perf_counter()
+        finished = engine.run_threaded(reqs) if threaded else engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = engine_counts()
+        st = engine.stats
+        # prefill runs eagerly, one flash call a layer a prefill; the
+        # decode step is captured once, so its wrapper runs twice a layer
+        # (the warm-up and the capture) and every step is a replay, which
+        # the wrapper's counter does not see: profiled_run counts those
+        expect = {ATTN[0]: cfg.n_layers * st["prefill_calls"],
+                  ATTN[1]: 2 * cfg.n_layers}
+        print(f"main path [serving, {label}] launches: {counts}; prefill "
+              f"calls {st['prefill_calls']}, decode steps "
+              f"{st['decode_steps']} (graph replays), decode_traces "
+              f"{st['decode_traces']}, prefill_traces {st['prefill_traces']}"
+              f"; the engine built and captured in {build_s:.1f} s")
+        if counts != expect:
+            fail(f"{label}: serving launched {counts}, not {expect}")
+        if st["graph_replays"] != st["decode_steps"]:
+            fail(f"{label}: {st['decode_steps']} decode steps but "
+                 f"{st['graph_replays']} graph replays")
+        if st["decode_traces"] != 1 or st["prefill_traces"] != 0:
+            fail(f"{label}: decode_traces {st['decode_traces']}, "
+                 f"prefill_traces {st['prefill_traces']}: the decode step "
+                 f"must be captured exactly once, prefill never")
+        done = sorted(finished, key=lambda r: r.uid)
+        if len(done) != REQUESTS or any(
+                len(r.generated) != MAX_NEW
+                or not all(0 <= x < cfg.vocab_size for x in r.generated)
+                for r in done):
+            fail(f"{label}: a request did not finish with {MAX_NEW} tokens "
+                 f"in the vocabulary")
+        tokens[label] = {r.uid: list(r.generated) for r in done}
+        summ = latency_summary(done)
+        n_tok = st["tokens_generated"]
+        o = {"tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
+             "prefill_calls": st["prefill_calls"],
+             "decode_steps": st["decode_steps"],
+             "graph_replays": st["graph_replays"], "launches": counts,
+             "build_s": build_s,
+             "max_memory_allocated_gb":
+                 torch.cuda.max_memory_allocated() / 1e9}
+        o.update({k: summ[k] for k in ("p50_ttft_s", "p95_ttft_s",
+                                       "p50_itl_s", "p50_latency_s")})
+        for name in ATTN:
+            out["launches"][name] += counts[name]
+        kv_gb = sum(t.nbytes for c in engine.caches["segments"]
+                    for t in c["self"].values()) / 1e9
+        o["kv_gb"] = kv_gb
+        print(f"serving [{label}] on {card}: {n_tok} tokens in {wall:.3f} s "
+              f"= {o['tok_per_s']:.2f} tok/s; TTFT p50 "
+              f"{summ['p50_ttft_s'] * 1e3:.1f} ms, p95 "
+              f"{summ['p95_ttft_s'] * 1e3:.1f} ms; inter-token p50 "
+              f"{summ['p50_itl_s'] * 1e3:.2f} ms; peak device memory "
+              f"{o['max_memory_allocated_gb']:.2f} GB (parameters "
+              f"{param_gb:.2f} GB, KV {layout} {kv_gb:.2f} GB)")
+        if layout == "paged":
+            full = SERVE["num_slots"] * SERVE["cache_len"] // BLOCK
+            o.update(pool_pages=engine.balloc.capacity(),
+                     pages_peak=st["pages_peak"],
+                     page_waits=st["page_waits"])
+            print(f"serving [{label}]: a pool of {o['pool_pages']} pages of "
+                  f"{BLOCK} ({kv_gb:.2f} GB) against the contiguous "
+                  f"layout's {full}; {st['pages_peak']} pages held at the "
+                  f"most; {st['page_waits']} requests waited for pages "
+                  f"with a slot free")
+        prof = profiled_run(engine, trace, threaded, cfg.n_layers, label)
+        o["profiled run"] = prof
+        for name, kernel in zip(ATTN, (FLASH_KERNEL, DECODE_KERNEL)):
+            out["device_launches"][name] += prof[kernel]
+        out["replays"] += prof["graph_replays"]
+        print(f"serving [{label}], the trace again under torch.profiler: "
+              f"{prof[FLASH_KERNEL]} {FLASH_KERNEL}s in "
+              f"{prof['prefill_calls']} prefills, {prof[DECODE_KERNEL]} "
+              f"{DECODE_KERNEL}s in {prof['graph_replays']} graph replays "
+              f"({prof['decode_steps']} decode steps): {cfg.n_layers} a "
+              f"prefill and a replay")
+        o.update(engine_step_report(engine, cfg, card, label, seed))
+        out["engines"][label] = o
+        del engine, finished, done, reqs
+    ref = tokens[SERVE_ENGINES[0][0]]
+    for label, toks in tokens.items():
+        same = sum(toks[uid] == ref[uid] for uid in ref)
+        print(f"tokens [{label}] equal the contiguous engine's for {same}/"
+              f"{len(ref)} requests")
+        if same != len(ref):
+            fail(f"{label}: the engines chose different tokens")
+
+    # replay: unbatched generate (batch 1) against the engines (batch 8)
     attn_kernel.flash.launches = attn_kernel.decode.launches = 0
-    t0 = time.perf_counter()
-    finished = engine.run(trace)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = {ATTN[0]: attn_kernel.flash.launches,
-              ATTN[1]: attn_kernel.decode.launches}
-    st = engine.stats
-    expect = {ATTN[0]: cfg.n_layers * st["prefill_calls"],
-              ATTN[1]: cfg.n_layers * st["decode_steps"]}
-    print(f"main path [serving] launches: {counts}; prefill calls "
-          f"{st['prefill_calls']}, decode steps {st['decode_steps']}")
-    if counts != expect:
-        fail(f"serving launched {counts}, not {cfg.n_layers} a prefill "
-             f"call and a decode step: {expect}")
-    done = sorted(finished, key=lambda r: r.uid)
-    if len(done) != REQUESTS or any(
-            len(r.generated) != MAX_NEW
-            or not all(0 <= x < cfg.vocab_size for x in r.generated)
-            for r in done):
-        fail("serving: a request did not finish with 32 tokens in the "
-             "vocabulary")
-    summ = latency_summary(done)
-    tokens = st["tokens_generated"]
-    out = {"tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
-           "prefill_calls": st["prefill_calls"],
-           "decode_steps": st["decode_steps"], "launches": counts,
-           "param_gb": param_gb, "kv_cache_gb": kv_gb,
-           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
-    out.update({k: summ[k] for k in ("p50_ttft_s", "p95_ttft_s",
-                                     "p50_itl_s", "p50_latency_s")})
-    print(f"serving: {tokens} tokens in {wall:.3f} s = "
-          f"{out['tok_per_s']:.2f} tok/s; TTFT p50 "
-          f"{summ['p50_ttft_s'] * 1e3:.1f} ms, p95 "
-          f"{summ['p95_ttft_s'] * 1e3:.1f} ms; inter-token p50 "
-          f"{summ['p50_itl_s'] * 1e3:.2f} ms; peak device memory "
-          f"{out['max_memory_allocated_gb']:.2f} GB (parameters "
-          f"{param_gb:.2f} GB, KV cache {kv_gb:.2f} GB)")
+    match = 0
+    for r in first[:REPLAY]:
+        prompt = torch.from_numpy(r.prompt[None].astype(np.int64)).to(dev)
+        toks = generate(params, cfg, prompt, max_new_tokens=MAX_NEW,
+                        cache_len=SERVE["cache_len"])
+        match += int((toks[0].cpu().numpy() == np.asarray(ref[r.uid])).sum())
+    replay = engine_counts()
+    print(f"replay: {match}/{REPLAY * MAX_NEW} tokens of {REPLAY} requests "
+          f"through unbatched generate equal the engines'; launches "
+          f"{replay}")
+    if replay != {ATTN[0]: cfg.n_layers * REPLAY,
+                  ATTN[1]: cfg.n_layers * REPLAY * (MAX_NEW - 1)}:
+        fail(f"the replay launched {replay}")
+    if match != REPLAY * MAX_NEW:
+        fail("unbatched generate and the engines chose different tokens")
+    out["replay_match"] = match
 
     # one prefill, kernels against the plain attention: the longest prompt
-    req = max(done, key=lambda r: r.prompt_len)
-    bucket = engine._bucket_for(req.prompt_len)
+    req = max(first, key=lambda r: r.prompt_len)
+    bucket = max(SERVE["prefill_buckets"])
     toks = torch.zeros(1, bucket, dtype=torch.int64, device=dev)
     toks[0, bucket - req.prompt_len:] = torch.from_numpy(
         req.prompt.astype(np.int64))
@@ -786,61 +1107,20 @@ def serve(dev, seed: int) -> Dict[str, Any]:
              "attention's")
     out["logits_err"], out["logits_span"] = err, span
 
-    # replay: unbatched generate (batch 1) against the engine (batch 8)
-    attn_kernel.flash.launches = attn_kernel.decode.launches = 0
-    match = 0
-    for r in done[:REPLAY]:
-        prompt = torch.from_numpy(r.prompt[None].astype(np.int64)).to(dev)
-        toks = generate(params, cfg, prompt, max_new_tokens=MAX_NEW,
-                        cache_len=SERVE["cache_len"])
-        match += int((toks[0].cpu().numpy() == np.asarray(r.generated)).sum())
-    replay = {ATTN[0]: attn_kernel.flash.launches,
-              ATTN[1]: attn_kernel.decode.launches}
-    print(f"replay: {match}/{REPLAY * MAX_NEW} tokens of {REPLAY} requests "
-          f"through unbatched generate equal the engine's; launches "
-          f"{replay}")
-    if replay != {ATTN[0]: cfg.n_layers * REPLAY,
-                  ATTN[1]: cfg.n_layers * REPLAY * (MAX_NEW - 1)}:
-        fail(f"the replay launched {replay}")
-    if match != REPLAY * MAX_NEW:
-        fail("unbatched generate and the engine chose different tokens")
-    out["replay_match"] = match
-
-    # where the time goes: one prefill (the longest prompt) and one decode
-    # step of the 8 slots, the device's kernels against the wall clock
+    # where a prefill's time goes (the longest prompt)
     def one_prefill():
         prefill(params, cfg, toks, cache_len=SERVE["cache_len"],
                 lengths=lengths)
 
-    tok = torch.zeros(SERVE["num_slots"], 1, dtype=torch.int64, device=dev)
-    pos = torch.from_numpy(engine.pos_buf).to(dev)
-
-    def one_step():
-        decode_step(params, cfg, tok, pos, engine.caches)
-
-    toks = torch.zeros(1, bucket, dtype=torch.int64, device=dev)
-    toks[0, bucket - req.prompt_len:] = torch.from_numpy(
-        req.prompt.astype(np.int64))
-    for name, fn, calls in (("prefill", one_prefill, 3),
-                            ("decode step", one_step, 10)):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / calls * 1e3
-        busy, top, flash_ms = device_profile(fn, match=FLASH_KERNEL)
-        out[f"{name} wall_ms"], out[f"{name} device_ms"] = wall, busy
-        out[f"{name} flash_ms"] = flash_ms
-        print(f"{name}: {wall:.3f} ms wall, {busy:.3f} ms of kernels "
-              f"(torch.profiler): the device idles {1 - busy / wall:.1%} of "
-              f"it; top kernels (name, ms, calls): {top}; the bf16 flash "
-              f"kernel ({FLASH_KERNEL}) {flash_ms:.3f} ms = "
-              f"{flash_ms / busy:.1%} of the kernel time")
-    graphed = graph_ms(one_step)
-    out["decode step graph_ms"] = graphed
-    print(f"decode step as one CUDA graph: {graphed:.3f} ms on the device")
+    wall = wall_ms(one_prefill, 3)
+    busy, top, flash_ms = device_profile(one_prefill, match=FLASH_KERNEL)
+    out["prefill wall_ms"], out["prefill device_ms"] = wall, busy
+    out["prefill flash_ms"] = flash_ms
+    print(f"prefill: {wall:.3f} ms wall, {busy:.3f} ms of kernels "
+          f"(torch.profiler): the device idles {1 - busy / wall:.1%} of it; "
+          f"top kernels (name, ms, calls): {top}; the bf16 flash kernel "
+          f"({FLASH_KERNEL}) {flash_ms:.3f} ms = {flash_ms / busy:.1%} of "
+          f"the kernel time")
     return out
 
 
@@ -1465,11 +1745,26 @@ def main() -> None:
               f"serving kernel, not in the paper's Phi-bar)")
 
     # ---- 7. serving: the LM main path ----------------------------------
-    served = serve(dev, args.seed)
+    served = serve(dev, args.seed, card)
     for name in ATTN:
         rec = {"name": name, "route": get_kernel(name).native,
                "source": SOURCE[name], "replaces": REPLACES[name],
-               "launches": served["launches"][name]}
+               "launches": served["launches"][name],
+               "device_launches": served["device_launches"][name]}
+        if name == ATTN[1]:
+            rec["graph_replays"] = served["replays"]
+            rec["launches_counted"] = (
+                "launches: wrapper calls while each engine is built and "
+                "serves the trace, 40 in the warm-up step and 40 in the "
+                "capture, which records the kernels into the graph and "
+                "runs none; a replay runs no wrapper. device_launches: "
+                "decode_kernels by torch.profiler in a second run of the "
+                "trace on each engine, 40 in each of its graph_replays")
+        else:
+            rec["launches_counted"] = (
+                "launches: wrapper calls, 40 a prefill; device_launches: "
+                "flash_wgmma_kernels by torch.profiler in a second run of "
+                "the trace on each engine")
         rec.update(attn[name])
         records.append(rec)
 

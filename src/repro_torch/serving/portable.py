@@ -1,18 +1,25 @@
 """The serving engine as a registry entry: ``serving.engine``.
 
-The port of ``repro/serving/portable.py`` for the contiguous layout.  The
-"kernel" is a host-side serving loop, and what conformance checks is its
-token stream on a fixed trace (the reference's ``conformance_trace``):
+The port of ``repro/serving/portable.py``.  The "kernel" is a host-side
+serving loop, and what conformance checks is its token stream on a fixed
+trace (the reference's ``conformance_trace``):
 
   * ``unbatched`` (oracle) — each request decoded alone through
     ``training.serve_step.generate``;
   * ``engine_contiguous`` — the synchronous engine loop over one
-    (num_slots, cache_len) KV row a slot.
+    (num_slots, cache_len) KV row a slot;
+  * ``engine_paged``      — the synchronous loop over the paged KV pool and
+    block tables (``serving/paged.py``);
+  * ``engine_threaded``   — the threaded producer/consumer loop
+    (``run_threaded``) over the paged layout.
 
-The engine must reproduce the oracle's greedy tokens exactly
-(``ORACLE_TOL["serving.engine"] = "bitwise"``): continuous batching is a
-scheduling concern that may never change a token.  The paged and threaded
-backends come with the paged layout (ROADMAP).
+Every engine backend must reproduce the oracle's greedy tokens exactly
+(``ORACLE_TOL["serving.engine"] = "bitwise"``): continuous batching, the
+cache layout and the driver's threads are scheduling concerns that may
+never change a token.  Each backend builds its own engine and its own
+fresh trace (engines mutate requests).  The trace exercises the paged
+admission gate (six requests through two slots, prompts in both prefill
+buckets) and the bucket ladder.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ ARCH = "granite-3-8b"
 NUM_SLOTS = 2
 CACHE_LEN = 32
 PREFILL_BUCKETS = (8, 16)
+BLOCK_SIZE = 8
 MAX_NEW = 4
 PROMPT_LENS = (3, 9, 12, 5, 16, 1)
 
@@ -72,18 +80,35 @@ def unbatched(params, cfg) -> torch.Tensor:
     return torch.stack(rows)
 
 
-def engine_contiguous(params, cfg) -> torch.Tensor:
+def _run_engine(params, cfg, *, cache_layout: str,
+                threaded: bool = False) -> torch.Tensor:
     from repro_torch.serving.engine import ServingEngine
     eng = ServingEngine(params, cfg, num_slots=NUM_SLOTS,
                         cache_len=CACHE_LEN,
-                        prefill_buckets=PREFILL_BUCKETS)
+                        prefill_buckets=PREFILL_BUCKETS,
+                        cache_layout=cache_layout, block_size=BLOCK_SIZE)
     trace = conformance_trace(cfg)
-    return _tokens(eng.run(trace), len(trace))
+    finished = eng.run_threaded(trace) if threaded else eng.run(trace)
+    return _tokens(finished, len(trace))
+
+
+def engine_contiguous(params, cfg) -> torch.Tensor:
+    return _run_engine(params, cfg, cache_layout="contiguous")
+
+
+def engine_paged(params, cfg) -> torch.Tensor:
+    return _run_engine(params, cfg, cache_layout="paged")
+
+
+def engine_threaded(params, cfg) -> torch.Tensor:
+    return _run_engine(params, cfg, cache_layout="paged", threaded=True)
 
 
 kernel = register_kernel(
     "serving.engine", oracle="unbatched",
     doc="continuous-batching serving engine: greedy token streams must "
-        "equal unbatched decode")
+        "equal unbatched decode across cache layouts and driver loops")
 kernel.add_backend("unbatched", unbatched)
 kernel.add_backend("engine_contiguous", engine_contiguous)
+kernel.add_backend("engine_paged", engine_paged)
+kernel.add_backend("engine_threaded", engine_threaded)

@@ -33,7 +33,8 @@ PORTED = ("attention.decode", "attention.flash", "babelstream.add",
           "babelstream.triad", "hartree_fock.twoel", "minibude.fasten",
           "rwkv6.wkv", "stencil7")
 #: the serving engine's host loop: oracle ``unbatched``, no kernel
-ENGINE = ("serving.engine", ("engine_contiguous", "unbatched"))
+ENGINE = ("serving.engine", ("engine_contiguous", "engine_paged",
+                              "engine_threaded", "unbatched"))
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -40,6 +40,7 @@ from repro_torch.kernels.stencil7 import kernel as stencil_kernel
 from repro_torch.kernels.stencil7 import ref as stencil_ref
 from repro_torch.models import rwkv as rwkv_model
 from repro_torch.models.transformer import init_params
+from repro_torch.serving import ServingEngine
 from repro_torch.serving import portable as serving_portable
 from repro_torch.training import serve_step as SS
 
@@ -506,21 +507,150 @@ def test_attention_kernels_reject_what_they_cannot_run(cuda):
 
 
 def test_engine_drains_a_trace_through_the_kernels(cuda):
-    # float32 compute, so that batch-1 and batch-2 GEMMs (other cuBLAS
-    # kernels) leave the greedy tokens alone
-    cfg = dataclasses.replace(get_config("granite-3-8b", smoke=True),
-                              compute_dtype="float32")
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    params = init_params(cfg, gen, cuda)
+    params, cfg = _float32_smoke(cuda)
     attn_kernel.flash.launches = attn_kernel.decode.launches = 0
     got = serving_portable.engine_contiguous(params, cfg)
     eng_flash, eng_decode = (attn_kernel.flash.launches,
                              attn_kernel.decode.launches)
-    # 6 prefills; 2 slots x 4 tokens: 3 rounds of 3 decode steps
+    # 6 prefills; the decode step is captured once as a CUDA graph (a
+    # warm-up call and the capture), and its 9 steps are replays, which
+    # the wrapper's counter does not see
     assert eng_flash == cfg.n_layers * len(serving_portable.PROMPT_LENS)
-    assert eng_decode == cfg.n_layers * 9
+    assert eng_decode == cfg.n_layers * 2
     want = serving_portable.unbatched(params, cfg)
     assert torch.equal(got, want)
+
+
+def _float32_smoke(cuda):
+    # float32 compute, so that batch-1 and batch-2 GEMMs (other cuBLAS
+    # kernels) leave the greedy tokens alone
+    cfg = dataclasses.replace(get_config("granite-3-8b", smoke=True),
+                              compute_dtype="float32")
+    return init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                       cuda), cfg
+
+
+def _kernel_count(fn, name, want, tries=5):
+    """How many kernels whose name holds ``name`` one call of ``fn()`` runs,
+    by ``torch.profiler``, after one call outside it.  The profiler can
+    drop records: a profile that shows fewer than ``want`` is taken again,
+    up to ``tries`` times; the largest count seen is returned."""
+    fn()
+    torch.cuda.synchronize()
+    best = 0
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        best = max(best, sum(e.count for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA
+                             and name in e.key))
+        if best >= want:
+            break
+    return best
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_engine_captures_the_decode_step_once(cuda, layout):
+    """A trace with staggered arrivals and finishes through two slots: one
+    capture for the engine's life, every decode step a replay, tokens equal
+    to eager unbatched generate on the card."""
+    params, cfg = _float32_smoke(cuda)
+    attn_kernel.flash.launches = attn_kernel.decode.launches = 0
+    eng = ServingEngine(params, cfg, num_slots=2, cache_len=32,
+                        prefill_buckets=(8, 16), cache_layout=layout,
+                        block_size=8)
+    # the warm-up step and the capture, each n_layers calls of the wrapper
+    assert attn_kernel.decode.launches == 2 * cfg.n_layers
+    assert eng.stats["decode_traces"] == 1
+    trace = serving_portable.conformance_trace(cfg)
+    for i, r in enumerate(trace):
+        r.arrival_time = 0.004 * i
+    done = eng.run(trace)
+    assert eng.stats["decode_traces"] == 1
+    assert eng.stats["prefill_traces"] == 0
+    assert eng.stats["decode_steps"] == eng.stats["graph_replays"] > 0
+    # a replay does not move the wrappers' counters
+    assert attn_kernel.decode.launches == 2 * cfg.n_layers
+    assert attn_kernel.flash.launches == \
+        cfg.n_layers * eng.stats["prefill_calls"]
+    want = serving_portable.unbatched(params, cfg)
+    got = torch.tensor([r.generated for r in sorted(done,
+                                                    key=lambda r: r.uid)],
+                       dtype=torch.int32)
+    assert torch.equal(got, want)
+    if layout == "paged":
+        assert eng.balloc.available() == eng.balloc.capacity()
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_threaded_engine_on_the_card_equals_generate(cuda, layout):
+    params, cfg = _float32_smoke(cuda)
+    eng = ServingEngine(params, cfg, num_slots=2, cache_len=32,
+                        prefill_buckets=(8, 16), cache_layout=layout,
+                        block_size=8)
+    trace = serving_portable.conformance_trace(cfg)
+    for i, r in enumerate(trace):
+        r.arrival_time = 0.004 * i
+    done = eng.run_threaded(trace)
+    assert eng.stats["decode_traces"] == 1
+    got = torch.tensor([r.generated for r in sorted(done,
+                                                    key=lambda r: r.uid)],
+                       dtype=torch.int32)
+    assert torch.equal(got, serving_portable.unbatched(params, cfg))
+
+
+def test_one_replay_launches_the_decode_kernel_once_a_layer(cuda):
+    params, cfg = _float32_smoke(cuda)
+    eng = ServingEngine(params, cfg, num_slots=2, cache_len=32,
+                        prefill_len=16)
+    replays = eng.stats["graph_replays"]
+    got = _kernel_count(eng.decode_logits, "decode_kernel", cfg.n_layers)
+    assert got == cfg.n_layers
+    assert eng.stats["graph_replays"] > replays
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_a_profiled_run_launches_the_decode_kernel_once_a_layer_a_replay(
+        cuda, layout):
+    """Over a whole trace, by torch.profiler: n_layers decode kernels a
+    replay and n_layers flash kernels a prefill, the counts chip_smoke.py
+    gates on its serving runs."""
+    params, cfg = _float32_smoke(cuda)
+    eng = ServingEngine(params, cfg, num_slots=2, cache_len=32,
+                        prefill_buckets=(8, 16), cache_layout=layout,
+                        block_size=8)
+    trace = serving_portable.conformance_trace(cfg)
+    for i, r in enumerate(trace):
+        r.arrival_time = 0.004 * i
+    eng.run(trace)
+    # the profiler can drop records: a run that shows fewer kernels than
+    # its steps need is profiled again, up to five times; more fails
+    for _ in range(5):
+        trace = serving_portable.conformance_trace(cfg)
+        for i, r in enumerate(trace):
+            r.arrival_time = 0.004 * i
+        before = dict(eng.stats)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            eng.run(trace)
+            torch.cuda.synchronize()
+        ran = {name: sum(e.count for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and name in e.key)
+               for name in ("decode_kernel", "flash_kernel")}
+        replays = eng.stats["graph_replays"] - before["graph_replays"]
+        prefills = eng.stats["prefill_calls"] - before["prefill_calls"]
+        want = {"decode_kernel": cfg.n_layers * replays,
+                "flash_kernel": cfg.n_layers * prefills}
+        assert all(ran[k] <= want[k] for k in want), (ran, want)
+        if ran == want:
+            break
+    assert replays == eng.stats["decode_steps"] - before["decode_steps"] > 0
+    assert ran == want
 
 
 # ---- the RWKV6 WKV ----------------------------------------------------------
