@@ -6,7 +6,9 @@ headers, so a build takes seconds.  Libraries go into the checkout's
 git-ignored ``build/kernels/`` directory under a name keyed by a hash of
 the source and the flags, so an edited source is rebuilt and an unchanged
 one is not.  A missing ``nvcc`` or a failed compile raises ``BuildError``;
-nothing falls back to another implementation.
+nothing falls back to another implementation.  With telemetry on, each
+``nvcc`` run is a ``cuda.build`` span and counter
+(``core/telemetry/cudamon.py``).
 """
 
 from __future__ import annotations
@@ -17,8 +19,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
+
+from repro_torch.core.telemetry import cudamon
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -78,13 +83,16 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
         log = lib.with_suffix(".log")
         with open(log, "w") as out:
+            t0 = time.perf_counter()
             proc = subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
                 stdout=out, stderr=subprocess.STDOUT)
-        running.append((name, lib, tmp, log, proc))
+        running.append((name, lib, tmp, log, proc, t0))
     failed = []
-    for name, lib, tmp, log, proc in running:
-        if proc.wait() != 0:
+    for name, lib, tmp, log, proc, t0 in running:
+        rc = proc.wait()
+        cudamon.record_build(name, t0, time.perf_counter(), rc == 0)
+        if rc != 0:
             tmp.unlink(missing_ok=True)
             failed.append(f"{name}: nvcc exited {proc.returncode}\n"
                           f"{log.read_text()}")

@@ -19,9 +19,11 @@ Two rules differ from the reference on purpose:
     and a build or launch that fails raises to the caller instead of
     turning into "unavailable".
 
-Tuned dispatch (``tuned=True``) and telemetry spans belong to later ports
-of ``core/tuning.py`` and ``core/telemetry/``; tunable spaces are declared
-here already.
+``__call__(tuned=True)`` reads the best tunable point for the exact call
+from the tuning cache (``core/tuning.py``), and ``time_backend`` emits the
+reference's telemetry events (``core/telemetry/``): one
+``registry.time_backend`` span a measurement, one ``registry.measure``
+instant a timing sample and one ``registry.time_backend.result`` instant.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
 import numpy as np
 import torch
 
+from repro_torch.core import telemetry as tel
+
 __all__ = [
     "Backend",
     "BackendUnavailableError",
@@ -48,6 +52,7 @@ __all__ = [
     "cuda_probe",
     "triton_probe",
     "time_call",
+    "time_graph",
 ]
 
 #: availability probe: None when the backend can run here, else the reason
@@ -251,10 +256,23 @@ class PortableKernel:
         return b
 
     def __call__(self, *args: Any, backend: Optional[str] = None,
+                 tuned: bool = False, tuning_cache: Any = None,
                  **kwargs: Any) -> Any:
-        """Run the kernel on ``backend`` (default: see ``default_backend``)."""
+        """Run the kernel on ``backend`` (default: see ``default_backend``).
+
+        With ``tuned=True`` the tuning cache (``repro_torch.core.tuning``;
+        ``tuning_cache`` or the default file) is read for the best tunable
+        point recorded for this (kernel, backend, shape, dtype, device):
+        cached params are merged *under* explicit kwargs, and a miss runs
+        the declared defaults.  Nothing is timed.
+        """
         name = backend if backend is not None else \
             self.default_backend(*args, **kwargs)
+        if tuned:
+            from repro_torch.core import tuning as _tuning
+            best = _tuning.cached_best_params(
+                self, *args, backend=name, cache=tuning_cache, **kwargs)
+            kwargs = {**best, **kwargs}
         return self._require_available(name)(*args, **kwargs)
 
     # ---- validation ----------------------------------------------------
@@ -287,15 +305,55 @@ class PortableKernel:
 
     # ---- measurement ---------------------------------------------------
     def time_backend(self, *args: Any, backend: str, iters: int = 10,
-                     warmup: int = 2, **kwargs: Any) -> float:
+                     warmup: int = 2, graph: bool = False,
+                     **kwargs: Any) -> float:
         """Median seconds per call after ``warmup`` calls (paper §3).
 
-        CUDA tensors are timed with CUDA events around batches of calls;
-        CPU tensors with the host clock around each call.  See
-        ``time_call``.
+        CUDA tensors are timed with CUDA events around batches of calls
+        (``time_call``), or with ``graph=True`` as a CUDA graph's replays
+        (``time_graph``: device time, the host's enqueue taken out); CPU
+        tensors with the host clock around each call.
+
+        Each measurement emits one ``registry.time_backend`` span tagged
+        with (kernel, backend, params, timer), one ``registry.measure``
+        instant per timing sample (a sample of ``CALLS_PER_SAMPLE`` calls
+        between two CUDA events is timed only as a whole, after the
+        synchronise, so a span around one call would time its enqueue) with
+        the sample's ms a call, the ``registry.time_backend.calls`` counter
+        and one ``registry.time_backend.result`` instant (shape signature,
+        params, median seconds, devices, platform, timer).  Events fire
+        after the timed region; with telemetry off the timing is the same.
         """
         fn = self._require_available(backend)
-        return time_call(fn, *args, iters=iters, warmup=warmup, **kwargs)
+        params = {k: v for k, v in kwargs.items()
+                  if isinstance(v, (bool, int, float, str, tuple))}
+        device = _cuda_device(args, kwargs)
+        timer = "host" if device is None else "graph" if graph else "events"
+        with tel.span("registry.time_backend", proc="registry",
+                      kernel=self.name, backend=backend, iters=iters,
+                      warmup=warmup, params=params, timer=timer):
+            measure = _graph_timed if graph else _timed
+            median_s, samples, per_sample = measure(fn, args, kwargs, iters,
+                                                    warmup)
+            for s in samples:
+                tel.instant("registry.measure", proc="registry",
+                            kernel=self.name, backend=backend, timer=timer,
+                            ms=s * 1e3, calls=per_sample)
+        tel.counter("registry.time_backend.calls", proc="registry")
+        if tel.enabled():
+            import json as _json
+
+            from repro_torch.core import tuning as _tuning
+            base = {k: v for k, v in kwargs.items() if k not in params}
+            tel.instant(
+                "registry.time_backend.result", proc="registry",
+                kernel=self.name, backend=backend,
+                shape=_tuning.shape_signature(*args, **base),
+                params_json=_json.dumps(params, sort_keys=True, default=repr),
+                seconds=median_s, iters=iters,
+                devices=_tuning.device_count(args, kwargs),
+                platform=_tuning.platform(args, kwargs), timer=timer)
+        return median_s
 
     def figure_of_merit(self, elapsed_s: float, *args: Any,
                         **kwargs: Any) -> Dict[str, float]:
@@ -352,6 +410,14 @@ def time_call(fn: Callable[..., Any], *args: Any, iters: int = 10,
     and there are at most ``LONG_CALL_SAMPLES`` of them.  With no CUDA
     tensor the host clock times each call.
     """
+    return _timed(fn, args, kwargs, iters, warmup)[0]
+
+
+def _timed(fn: Callable[..., Any], args: Sequence[Any],
+           kwargs: Mapping[str, Any], iters: int, warmup: int
+           ) -> Tuple[float, List[float], int]:
+    """``time_call``'s measurement: (median seconds per call, each sample's
+    seconds per call, calls a sample)."""
     device = _cuda_device(args, kwargs)
     if device is None:
         for _ in range(warmup):
@@ -361,7 +427,7 @@ def time_call(fn: Callable[..., Any], *args: Any, iters: int = 10,
             t0 = time.perf_counter()
             fn(*args, **kwargs)
             times.append(time.perf_counter() - t0)
-        return float(np.median(times))
+        return float(np.median(times)), times, 1
     with torch.cuda.device(device):
         last = 0.0
         for _ in range(warmup):
@@ -381,8 +447,55 @@ def time_call(fn: Callable[..., Any], *args: Any, iters: int = 10,
                 fn(*args, **kwargs)
             end.record()
         torch.cuda.synchronize()
-    ms = np.median([s.elapsed_time(e) for s, e in marks]) / per_sample
-    return float(ms) / 1e3
+    samples = [s.elapsed_time(e) for s, e in marks]
+    ms = np.median(samples) / per_sample
+    return float(ms) / 1e3, [m / per_sample / 1e3 for m in samples], \
+        per_sample
+
+
+def time_graph(fn: Callable[..., Any], *args: Any, iters: int = 10,
+               warmup: int = 1, **kwargs: Any) -> float:
+    """Median device seconds per call of ``fn(*args, **kwargs)``: one call
+    captured as a CUDA graph and replayed ``CALLS_PER_SAMPLE`` times between
+    two CUDA events a sample, over ``iters`` samples, so the host's time to
+    enqueue the call (which ``time_call`` reads when it is the longer) drops
+    out.  ``warmup`` eager calls come first (at least one: a kernel may
+    build, configure or allocate at its first call, which a capture may
+    not do).  On the device of the CUDA tensors among the arguments, or on
+    the current CUDA device when no tensor is passed (a closure)."""
+    return _graph_timed(fn, args, kwargs, iters, warmup)[0]
+
+
+def _graph_timed(fn: Callable[..., Any], args: Sequence[Any],
+                 kwargs: Mapping[str, Any], iters: int, warmup: int
+                 ) -> Tuple[float, List[float], int]:
+    device = _cuda_device(args, kwargs)
+    if device is None:
+        if any(True for _ in _tensors(args, kwargs)) or \
+                not torch.cuda.is_available():
+            raise ValueError("time_graph times CUDA graphs: it needs CUDA "
+                             "tensors, or a CUDA device for a closure")
+        device = torch.device("cuda", torch.cuda.current_device())
+    with torch.cuda.device(device):
+        for _ in range(max(warmup, 1)):
+            fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn(*args, **kwargs)
+        graph.replay()
+        torch.cuda.synchronize()
+        marks = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        for start, end in marks:
+            start.record()
+            for _ in range(CALLS_PER_SAMPLE):
+                graph.replay()
+            end.record()
+        torch.cuda.synchronize()
+    samples = [s.elapsed_time(e) / CALLS_PER_SAMPLE for s, e in marks]
+    return float(np.median(samples)) / 1e3, [m / 1e3 for m in samples], \
+        CALLS_PER_SAMPLE
 
 
 class KernelRegistry:

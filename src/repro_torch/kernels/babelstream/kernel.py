@@ -26,13 +26,16 @@ it:
 The wrappers take flat 1-D tensors.  CPU tensors run the plain version in
 ``ref.py``; CUDA tensors launch the kernel, or raise.  Each wrapper counts
 its kernel launches in ``<wrapper>.launches`` (``dot`` launches two per
-call).  Triton is imported, and the kernels built, at the first launch.
+call).  Triton is imported, and the kernels built, at the first launch,
+which also installs the telemetry's Triton compile hook
+(``core/telemetry/cudamon.py``).
 (No ``from __future__ import annotations`` here: the ``tl.constexpr``
 parameter annotations stay objects, as Triton expects.)
 """
 
 import torch
 
+from repro_torch.core.telemetry import cudamon
 from repro_torch.kernels.babelstream import ref
 
 #: declared tunables of the ``triton`` backend (ops.py registers them)
@@ -56,6 +59,7 @@ def _kernels():
         return _STREAM, _DOT
     import triton
     import triton.language as tl
+    cudamon.watch_triton()
 
     @triton.jit
     def stream_kernel(x_ptr, y_ptr, out_ptr, n, OP: tl.constexpr,

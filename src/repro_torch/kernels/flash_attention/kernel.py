@@ -61,10 +61,14 @@ _ARRIVALS: Dict[int, torch.Tensor] = {}
 #: buffers outgrown: kept, since a captured CUDA graph may still use one
 _OUTGROWN: List[torch.Tensor] = []
 
+#: the ``csrc/`` sources this module loads (the tuning cache's code hash
+#: reads them: no Python name reaches a ``.cu``)
+CUDA_SOURCES = ("flash_attention",)
+
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = _build.load("flash_attention")
+    lib = _build.load(CUDA_SOURCES[0])
     c_int, c_ll, c_void_p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     lib.flash_attention_fwd.argtypes = (
         [c_int] * 4 + [c_void_p] * 7 + [c_ll, c_ll] + [c_int] * 8

@@ -49,10 +49,14 @@ MAX_SCRATCH_BYTES = 8 << 30
 # the reference's float32 constant, exactly
 _TWO_PI_POW_2_5 = float(np.float32(ref.TWO_PI_POW_2_5))
 
+#: the ``csrc/`` sources this module loads (the tuning cache's code hash
+#: reads them: no Python name reaches a ``.cu``)
+CUDA_SOURCES = ("hartree_fock",)
+
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = _build.load("hartree_fock")
+    lib = _build.load(CUDA_SOURCES[0])
     c_int, c_void_p = ctypes.c_int, ctypes.c_void_p
     lib.twoel_f32.argtypes = ([c_void_p] * 8 + [c_int] * 9
                               + [ctypes.c_float, c_void_p])

@@ -56,10 +56,14 @@ def check_deck(natpro: int, natlig: int, nposes: int) -> None:
         raise ValueError(f"the pair table of {natlig} x {natpro} pairs "
                          f"({need} bytes) is above {MAX_TABLE_BYTES} bytes")
 
+#: the ``csrc/`` sources this module loads (the tuning cache's code hash
+#: reads them: no Python name reaches a ``.cu``)
+CUDA_SOURCES = ("minibude",)
+
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = _build.load("minibude")
+    lib = _build.load(CUDA_SOURCES[0])
     c_int, c_void_p = ctypes.c_int, ctypes.c_void_p
     lib.fasten_f32.argtypes = [c_void_p] * 7 + [c_int] * 5 + [c_void_p]
     lib.fasten_f32.restype = c_int

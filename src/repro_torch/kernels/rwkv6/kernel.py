@@ -44,10 +44,14 @@ CHUNK_GRID = (16, 32, 64)
 CHUNK = 64
 HEAD_DIMS = (32, 64)
 
+#: the ``csrc/`` sources this module loads (the tuning cache's code hash
+#: reads them: no Python name reaches a ``.cu``)
+CUDA_SOURCES = ("rwkv6",)
+
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = _build.load("rwkv6")
+    lib = _build.load(CUDA_SOURCES[0])
     c_int, c_void_p = ctypes.c_int, ctypes.c_void_p
     lib.rwkv6_wkv_fwd.argtypes = ([c_int] * 2 + [c_void_p] * 11
                                   + [c_int] * 3 + [c_void_p])

@@ -28,10 +28,14 @@ BLOCK_Y_GRID = (2, 4, 8)
 ZCHUNK_GRID = (16, 64, 256)
 BLOCK_X, BLOCK_Y, ZCHUNK = 32, 8, 64
 
+#: the ``csrc/`` sources this module loads (the tuning cache's code hash
+#: reads them: no Python name reaches a ``.cu``)
+CUDA_SOURCES = ("stencil7",)
+
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = _build.load("stencil7")
+    lib = _build.load(CUDA_SOURCES[0])
     c_int, c_float, c_void_p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     lib.stencil7_f32.argtypes = [c_void_p, c_void_p, c_int, c_int, c_int,
                                  c_float, c_float, c_float, c_float,

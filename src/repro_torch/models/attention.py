@@ -20,20 +20,35 @@ Two deliberate differences from the reference:
   * the cache is written in place (``index_put_``): a cache dict passed in
     is the one returned, updated.
 
-Cross-attention memory, dispatch records and telemetry events wait for
-later slices (ROADMAP).
+Each routing decision lands in a bounded dispatch stream
+(``reset_dispatch_log`` / ``dispatch_log`` for the last decision per kind,
+``dispatch_records`` for the history) and, with telemetry on, as an
+``attn.dispatch`` event and a per-backend counter.  On the ``cuda`` route
+``attend`` injects the tuned block sizes of the exact call from the tuning
+cache (``core/tuning.py``; ``bq``/``bk`` for flash, ``bkv`` for decode) and
+records their provenance (``exhaustive``, ``coordinate`` or
+``miss-default``); the ``torch`` route records ``tuning="n/a"``.  With no
+fallback there is no ``fallback`` field.  A decode step captured as a CUDA
+graph looks its params up while it is captured, so a replay runs the
+tuned ``bkv`` and no Python; an eager prefill looks up per call, through
+a per-process memo, so a repeated shape costs one dict lookup.
+
+Cross-attention memory waits for a later slice (ROADMAP item 8).
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 import repro_torch.kernels.flash_attention.ops  # noqa: F401  (registers)
-from repro_torch.core.portable import BackendUnavailableError, get_kernel
+from repro_torch.core import telemetry as tel
+from repro_torch.core import tuning
+from repro_torch.core.portable import (BackendUnavailableError,
+                                       PortableKernel, get_kernel)
 from repro_torch.kernels.flash_attention.ref import attend_torch
 from repro_torch.models.common import Params, apply_rope, dense_init
 
@@ -107,6 +122,93 @@ def resolve_attention_backend(kind: str, backend: Optional[str] = None,
     return req
 
 
+# --------------------------------------------------------------------------
+# dispatch records and tuned params
+# --------------------------------------------------------------------------
+#: how many routing decisions the bounded dispatch stream retains (oldest
+#: evicted first)
+DISPATCH_LOG_CAP = 256
+
+_DISPATCH_RECORDS = tel.RingLog(capacity=DISPATCH_LOG_CAP)
+#: the last decision per kind, apart from the ring: an eager prefill logs a
+#: decision a layer, so 40-layer prefills evict a captured decode step's
+#: records from the ring within a few calls
+_LAST: Dict[str, Dict[str, Any]] = {}
+
+
+def reset_dispatch_log() -> None:
+    """Clear the routing record (call before the run whose dispatch you
+    want to observe)."""
+    _DISPATCH_RECORDS.clear()
+    _LAST.clear()
+
+
+def dispatch_log() -> Dict[str, Dict[str, Any]]:
+    """The *last* routing decision per dispatch kind (``"prefill"`` /
+    ``"decode"``): resolved backend, kernel, tuning provenance
+    (``"exhaustive"`` / ``"coordinate"`` / ``"miss-default"``, ``"n/a"`` on
+    the ``torch`` route) and the injected params.  Every eager call
+    records one; a graph's replay records none (the capture did)."""
+    return {kind: dict(fields) for kind, fields in list(_LAST.items())}
+
+
+def dispatch_records() -> List[Dict[str, Any]]:
+    """The full bounded dispatch stream, oldest first: each record carries
+    ``kind`` plus the fields of :func:`dispatch_log` (up to
+    ``DISPATCH_LOG_CAP``)."""
+    return _DISPATCH_RECORDS.records()
+
+
+def _log(kind: str, **fields: Any) -> None:
+    _DISPATCH_RECORDS.append({"kind": kind, **fields})
+    _LAST[kind] = fields
+    tel.instant("attn.dispatch", proc="dispatch", kind=kind, **fields)
+    tel.counter(f"attn.dispatch.{kind}.{fields.get('backend', '?')}",
+                proc="dispatch")
+
+
+#: (cache path setting, cache writes, kernel, backend, the call's shapes,
+#: dtypes, devices and kwargs) -> (params, provenance)
+_TUNED: Dict[Tuple[Any, ...], Tuple[Dict[str, Any], str]] = {}
+
+
+def _tuned_params(kernel: PortableKernel, *args: Any, backend: str,
+                  **kwargs: Any) -> Tuple[Dict[str, Any], str]:
+    """(params, provenance) for this exact call from the default tuning
+    cache; a miss gives ({}, ``"miss-default"``), the declared defaults.
+    Memoised per shape in the process; a write to any tuning cache or a
+    new cache path starts over."""
+    memo = (os.environ.get(tuning.CACHE_ENV), tuning.writes(), kernel.name,
+            backend,
+            *[(a.shape, a.dtype, a.get_device()) for a in args],
+            *sorted(kwargs.items()))
+    hit = _TUNED.get(memo)
+    if hit is None:
+        entry = tuning.cached_entry(kernel, *args, backend=backend, **kwargs)
+        hit = _TUNED[memo] = (
+            ({}, "miss-default") if entry is None else
+            (tuning.params_from_cache(entry["params"]),
+             entry.get("search", "exhaustive")))
+    return dict(hit[0]), hit[1]
+
+
+def kernel_args(kind: str, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, q_pos: torch.Tensor, k_pos: torch.Tensor,
+                *, causal: bool, window: int = 0,
+                k_index_aligned: bool = True
+                ) -> Tuple[Tuple[torch.Tensor, ...], Dict[str, Any]]:
+    """The (args, kwargs) that ``attend`` hands the ``kind`` kernel for
+    model-layout q (B, S, H, Dh), k/v (B, T, Kv, Dh): the same call, and so
+    the same tuning key, as a sweep that tunes the kernel for the model
+    (flash takes transposed views, no copy)."""
+    if kind == "decode":
+        return (q, k, v, q_pos, k_pos), {"window": window}
+    return ((q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+             q_pos, k_pos),
+            {"causal": causal, "window": window,
+             "k_index_aligned": k_index_aligned})
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_pos: torch.Tensor, k_pos: torch.Tensor, *, n_kv_heads: int,
            causal: bool, window: int = 0, backend: Optional[str] = None,
@@ -124,16 +226,18 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = q.shape[1]
     kind = "decode" if (causal and s == 1) else "prefill"
     name = resolve_attention_backend(kind, backend, q.device)
-    if name == "torch":
+    kernel = get_kernel(ATTN_KERNELS[kind])
+    if name == kernel.oracle:
+        _log(kind, backend=name, kernel=kernel.name, tuning="n/a", params={})
         return attend_torch(q, k, v, q_pos, k_pos, n_kv_heads=n_kv_heads,
                             causal=causal, window=window)
-    kernel = get_kernel(ATTN_KERNELS[kind])
-    if kind == "decode":
-        return kernel(q, k, v, q_pos, k_pos, backend=name, window=window)
-    out = kernel(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                 q_pos, k_pos, backend=name, causal=causal, window=window,
-                 k_index_aligned=k_index_aligned)
-    return out.transpose(1, 2)
+    args, kwargs = kernel_args(kind, q, k, v, q_pos, k_pos, causal=causal,
+                               window=window,
+                               k_index_aligned=k_index_aligned)
+    params, prov = _tuned_params(kernel, *args, backend=name, **kwargs)
+    _log(kind, backend=name, kernel=kernel.name, tuning=prov, params=params)
+    out = kernel(*args, backend=name, **kwargs, **params)
+    return out if kind == "decode" else out.transpose(1, 2)
 
 
 def _write_cache(cache: Dict[str, torch.Tensor], k: torch.Tensor,

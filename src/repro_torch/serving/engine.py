@@ -51,7 +51,18 @@ Two driver loops share the admission and decode core:
 
 Supported models: dense decoder-only attention archs.  RWKV, SSM and
 encoder-decoder state is per-request state this slot scatter does not
-carry.  Telemetry spans wait for the port of ``core/telemetry`` (ROADMAP).
+carry.
+
+Telemetry (``core/telemetry``; off by default) records the reference's
+lifecycle events at the same host-level sites: the instants
+``serving.enqueue``, ``serving.slot_assign``, ``serving.first_token`` and
+``serving.finish``, the ``serving.requests_finished`` counter, the
+``serving.queue_depth`` and ``serving.slot_occupancy`` gauges, and the
+spans ``serving.prefill``, ``serving.decode_step`` (around the graph's
+replay; it closes on the step's own copy of the tokens to the host, so no
+event adds a synchronise) and ``serving.run``; the decode step's capture
+counts as ``cuda.graph_capture``.  Nothing enters the captured region, and
+the tokens are the same with telemetry on or off.
 """
 
 from __future__ import annotations
@@ -66,6 +77,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import telemetry as tel
+from repro_torch.core.telemetry import cudamon
 from repro_torch.models.attention import resolve_attention_backend
 from repro_torch.models.transformer import Params, forward, init_caches
 from repro_torch.serving.paged import (check_paged_geometry, gather_caches,
@@ -250,6 +263,7 @@ class ServingEngine:
             self._graph_out = self._decode_fn()
         self._graph = graph
         self.stats["decode_traces"] += 1
+        cudamon.graph_captured("serving.decode_step")
 
     def decode_logits(self, eager: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -343,6 +357,10 @@ class ServingEngine:
     def submit(self, req: Request) -> None:
         self._prepare(req)
         self.queue.submit(req)
+        tel.instant("serving.enqueue", proc="engine", uid=req.uid,
+                    prompt_len=req.prompt_len,
+                    max_new_tokens=req.max_new_tokens,
+                    queue_depth=len(self.queue))
 
     def _has_capacity(self, req: Request) -> bool:
         """Can ``req`` be admitted now?  A free slot always; the paged
@@ -372,12 +390,18 @@ class ServingEngine:
             self.block_tables[slot] = TRASH_BLOCK
         self.stats["requests_finished"] += 1
         finished.append(req)
+        tel.instant("serving.finish", proc="engine", uid=req.uid, slot=slot,
+                    tokens=len(req.generated),
+                    latency_s=req.t_done - req.arrival_time)
+        tel.counter("serving.requests_finished", proc="engine")
 
     def _admit(self, req: Request, now: float,
                finished: List[Request]) -> None:
         slot = self.slots.alloc()
         self.slot_req[slot] = req
         req.t_admitted = now
+        tel.instant("serving.slot_assign", proc="engine", uid=req.uid,
+                    slot=slot, queued_s=now - req.arrival_time)
         L = req.prompt_len
         bucket = self._bucket_for(L)
         toks = np.zeros((1, bucket), np.int64)
@@ -394,12 +418,16 @@ class ServingEngine:
             row = np.full(self.pages_per_slot, SENTINEL_BLOCK, np.int32)
             row[:n_pages] = pages
             self.block_tables[slot] = row
-        tok0 = self._prefill(torch.from_numpy(toks).to(self.device), L,
-                             slot, req.generator, row)   # host sync
+        with tel.span("serving.prefill", proc="engine", uid=req.uid,
+                      slot=slot, prompt_len=L, bucket=bucket):
+            tok0 = self._prefill(torch.from_numpy(toks).to(self.device), L,
+                                 slot, req.generator, row)   # host sync
         self.stats["prefill_calls"] += 1
         now = self._clock()
         req.t_first_token = now
         req.t_tokens.append(now)
+        tel.instant("serving.first_token", proc="engine", uid=req.uid,
+                    slot=slot, ttft_s=now - req.arrival_time)
         req.generated.append(tok0)
         self.stats["tokens_generated"] += 1
         if len(req.generated) >= req.max_new_tokens or tok0 == req.eos_id:
@@ -412,10 +440,16 @@ class ServingEngine:
     def _decode_once(self, finished: List[Request]) -> int:
         """Decode one token for every slot; appends newly finished requests
         to ``finished`` and returns how many finished."""
-        if self.active_count() == 0:
+        active = self.active_count()
+        if active == 0:
             return 0
         n0 = len(finished)
-        toks = self.decode_tokens()
+        tel.gauge("serving.queue_depth", len(self.queue), proc="engine")
+        tel.gauge("serving.slot_occupancy", active / self.num_slots,
+                  proc="engine")
+        with tel.span("serving.decode_step", proc="engine", active=active,
+                      step=self.stats["decode_steps"]):
+            toks = self.decode_tokens()      # the tokens' .cpu() syncs
         self.stats["decode_steps"] += 1
         now = self._clock()
         for s, req in enumerate(self.slot_req):
@@ -456,17 +490,20 @@ class ServingEngine:
         """Serve a trace to completion, synchronously.  Resets the engine
         clock to 0, so ``arrival_time`` fields are relative to this call."""
         self._t0 = time.perf_counter()
-        for req in sorted(requests, key=lambda r: r.arrival_time):
-            self.submit(req)
-        finished: List[Request] = []
-        while self.queue or self.active_count():
-            now = self._clock()
-            if self.active_count() == 0 and not self.queue.has_ready(now):
-                # idle: sleep until the next arrival (capped)
-                nxt = self.queue.next_arrival()
-                time.sleep(min(max(0.0, nxt - now), 0.05))
-                continue
-            finished.extend(self.step(now))
+        with tel.span("serving.run", proc="engine",
+                      requests=len(requests), num_slots=self.num_slots):
+            for req in sorted(requests, key=lambda r: r.arrival_time):
+                self.submit(req)
+            finished: List[Request] = []
+            while self.queue or self.active_count():
+                now = self._clock()
+                if self.active_count() == 0 and not self.queue.has_ready(
+                        now):
+                    # idle: sleep until the next arrival (capped)
+                    nxt = self.queue.next_arrival()
+                    time.sleep(min(max(0.0, nxt - now), 0.05))
+                    continue
+                finished.extend(self.step(now))
         return finished
 
     # ------------------------------------------------------------------
@@ -517,6 +554,10 @@ class ServingEngine:
                 wait = r.arrival_time - self._clock()
                 if wait > 0:
                     time.sleep(wait)
+                tel.instant("serving.enqueue", proc="engine", uid=r.uid,
+                            prompt_len=r.prompt_len,
+                            max_new_tokens=r.max_new_tokens,
+                            queue_depth=arrivals.qsize())
                 if not _put(r):
                     return
             _put(None)                   # sentinel: the trace is injected
@@ -542,24 +583,27 @@ class ServingEngine:
                              daemon=True),
                    JetThread(target=admit, name="serving-admit",
                              daemon=True)]
-        for t in threads:
-            t.start()
-        try:
-            while True:
-                with self._cond:
-                    if self.active_count():
-                        if self._decode_once(finished):
-                            self._cond.notify_all()   # capacity freed
-                    elif admission_done.is_set():
-                        break
-                    else:
-                        self._cond.wait(poll_s)
-                if any(t.error is not None for t in threads):
-                    break
-        finally:
-            abort.set()
+        with tel.span("serving.run", proc="engine", requests=len(reqs),
+                      num_slots=self.num_slots, mode="threaded",
+                      backpressure=backpressure):
             for t in threads:
-                t.join()
+                t.start()
+            try:
+                while True:
+                    with self._cond:
+                        if self.active_count():
+                            if self._decode_once(finished):
+                                self._cond.notify_all()   # capacity freed
+                        elif admission_done.is_set():
+                            break
+                        else:
+                            self._cond.wait(poll_s)
+                    if any(t.error is not None for t in threads):
+                        break
+            finally:
+                abort.set()
+                for t in threads:
+                    t.join()
         for t in threads:
             if t.error is not None:
                 raise t.error

@@ -12,6 +12,7 @@ The CPU tests that hold the port against the JAX package are the other
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -20,9 +21,9 @@ import torch
 import repro_torch.kernels  # noqa: F401
 from repro_torch.configs import get_config
 from repro_torch.core import (Efficiency, conformance, get_kernel, phi_bar,
-                              time_call)
+                              time_call, tuning)
 from repro_torch.core.portable import (CALLS_PER_SAMPLE, LONG_CALL_S,
-                                       LONG_CALL_SAMPLES)
+                                       LONG_CALL_SAMPLES, time_graph)
 from repro_torch.kernels.babelstream import kernel as stream_kernel
 from repro_torch.kernels.flash_attention import cases as attn_cases
 from repro_torch.kernels.flash_attention import kernel as attn_kernel
@@ -38,6 +39,7 @@ from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
 from repro_torch.kernels.stencil7 import kernel as stencil_kernel
 from repro_torch.kernels.stencil7 import ref as stencil_ref
+from repro_torch.models import attention
 from repro_torch.models import rwkv as rwkv_model
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import ServingEngine
@@ -785,3 +787,152 @@ def test_rwkv_generate_runs_the_kernel_at_every_step(cuda):
                        wkv_backend="torch")
     assert wkv_kernel.wkv.launches == cfg.n_layers * 5
     assert torch.equal(got, want)
+
+
+# ---- tuning, tuned dispatch and telemetry on the card ----------------------
+@pytest.fixture
+def tuning_cache(tmp_path, monkeypatch):
+    """A fresh default tuning cache file for one test."""
+    monkeypatch.setenv(tuning.CACHE_ENV, str(tmp_path / "tuning.json"))
+    attention.reset_dispatch_log()
+    yield tuning.default_cache()
+    attention.reset_dispatch_log()
+
+
+def _recording(monkeypatch, name):
+    """Wrap the ``cuda`` backend of ``name`` so that each call records the
+    kwargs it was given, then runs the kernel."""
+    k = get_kernel(name)
+    real = k.backend("cuda").fn
+    seen = []
+
+    def fn(*args, **kwargs):
+        seen.append(kwargs)
+        return real(*args, **kwargs)
+
+    monkeypatch.setitem(k.backends, "cuda",
+                        dataclasses.replace(k.backend("cuda"), fn=fn))
+    return seen
+
+
+def _attn_inputs(kind, dtype, cuda, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "decode":
+        b, s, t, h, kv, dh = 2, 1, 300, 8, 2, 64
+    else:
+        b, s, t, h, kv, dh = 1, 96, 96, 8, 2, 64
+    q = torch.from_numpy(rng.standard_normal((b, s, h, dh)).astype(
+        np.float32)).to(cuda, dtype)
+    k = torch.from_numpy(rng.standard_normal((b, t, kv, dh)).astype(
+        np.float32)).to(cuda, dtype)
+    v = torch.from_numpy(rng.standard_normal((b, t, kv, dh)).astype(
+        np.float32)).to(cuda, dtype)
+    kp = torch.arange(t, dtype=torch.int32, device=cuda)[None].repeat(b, 1)
+    qp = (torch.full((b, 1), t - 1, dtype=torch.int32, device=cuda)
+          if kind == "decode" else kp[:, :s].contiguous())
+    return q, k, v, qp, kp
+
+
+@pytest.mark.parametrize("kind,dtype,planted", [
+    ("decode", torch.bfloat16, {"bkv": 64}),
+    ("decode", torch.float32, {"bkv": 512}),
+    ("prefill", torch.float32, {"bq": 32, "bk": 32}),
+    ("prefill", torch.bfloat16, {"bq": 64, "bk": 128}),
+])
+def test_planted_tuned_params_reach_the_kernel_wrapper(
+        cuda, tuning_cache, monkeypatch, kind, dtype, planted):
+    name = attention.ATTN_KERNELS[kind]
+    seen = _recording(monkeypatch, name)
+    q, k, v, qp, kp = _attn_inputs(kind, dtype, cuda)
+    args, kwargs = attention.kernel_args(kind, q, k, v, qp, kp, causal=True)
+    want = attention.attend(q, k, v, qp, kp, n_kv_heads=2, causal=True)
+    assert seen[-1] == kwargs
+    assert attention.dispatch_log()[kind]["tuning"] == "miss-default"
+    tuning_cache.put(tuning.make_key(get_kernel(name), *args, backend="cuda",
+                                     **kwargs), planted, 1e-5,
+                     search="exhaustive", timer="graph")
+    got = attention.attend(q, k, v, qp, kp, n_kv_heads=2, causal=True)
+    assert seen[-1] == {**kwargs, **planted}
+    assert attention.dispatch_log()[kind] == {
+        "backend": "cuda", "kernel": name, "tuning": "exhaustive",
+        "params": planted}
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=ATTN_TOL[dtype][0],
+                               atol=ATTN_TOL[dtype][1])
+
+
+def test_a_planted_bkv_that_does_not_fit_raises(cuda, tuning_cache):
+    q, k, v, qp, kp = _attn_inputs("decode", torch.bfloat16, cuda)
+    args, kwargs = attention.kernel_args("decode", q, k, v, qp, kp,
+                                         causal=True)
+    tuning_cache.put(tuning.make_key(get_kernel("attention.decode"), *args,
+                                     backend="cuda", **kwargs),
+                     {"bkv": 96}, 1e-5)
+    with pytest.raises(ValueError, match="bkv"):
+        attention.attend(q, k, v, qp, kp, n_kv_heads=2, causal=True)
+
+
+def test_tune_ranks_fast_points_by_graph_time(cuda, tmp_path):
+    """Decode at a small shape reads under GRAPH_TIMER_BELOW_S by
+    time_call: every bkv is ranked as a graph's replay, after its own
+    eager warm-up, and the entry says so; a repeat is a cache hit."""
+    q, k, v, qp, kp = _attn_inputs("decode", torch.bfloat16, cuda)
+    cache = tuning.TuningCache(tmp_path / "t.json")
+    r = tuning.tune_registered("attention.decode", q, k, v, qp, kp,
+                               backend="cuda", cache=cache, window=0,
+                               iters=5)
+    assert r.skipped is None and r.timer == "graph"
+    assert [p["bkv"] for p, _ in r.swept] == list(attn_kernel.BKV_GRID)
+    assert all(0 < s < tuning.GRAPH_TIMER_BELOW_S for _, s in r.swept)
+    again = tuning.tune_registered("attention.decode", q, k, v, qp, kp,
+                                   backend="cuda", cache=cache, window=0)
+    assert again.cached and again.params == r.params
+    assert again.timer == "graph"
+
+
+def test_tuned_call_and_time_graph_on_the_card(cuda, tmp_path):
+    a = torch.randn(1 << 16, device=cuda)
+    cache = tuning.TuningCache(tmp_path / "t.json")
+    r = tuning.tune_registered("babelstream.copy", a, backend="triton",
+                               cache=cache)
+    assert r.skipped is None and len(r.swept) == 6
+    kern = get_kernel("babelstream.copy")
+    before = stream_kernel.copy.launches
+    out = kern(a, tuned=True, tuning_cache=cache)
+    assert torch.equal(out, a) and stream_kernel.copy.launches == before + 1
+    assert 0 < time_graph(stream_kernel.copy, a, **r.params) < 1e-2
+
+
+def test_triton_compiles_and_the_jit_body_are_seen(cuda):
+    from repro_torch.core import telemetry as tel
+    from repro_torch.core.telemetry import cudamon
+    a = torch.randn(4096, device=cuda)
+    stream_kernel.copy(a)
+    assert cudamon.triton_route() is not None
+    body = tuning._unwrap_callable(stream_kernel._STREAM)
+    assert body.__module__ == stream_kernel.__name__
+    rec = tel.configure("on")
+    try:
+        # a scalar no other test uses: a new compile, then a cached one
+        stream_kernel.mul(a, 0.125, block=1024, num_warps=4)
+        stream_kernel.mul(a, 0.125, block=1024, num_warps=4)
+        counters = rec.snapshot()["counters"]
+    finally:
+        tel.configure(os.environ.get(tel.ENV))
+    assert cudamon.triton_route() != "none"
+    assert counters.get(cudamon.TRITON_COMPILE) == 1, counters
+
+
+def test_engine_counts_one_graph_capture(cuda):
+    from repro_torch.core import telemetry as tel
+    from repro_torch.core.telemetry import cudamon
+    params, cfg = _float32_smoke(cuda)
+    rec = tel.configure("on")
+    try:
+        eng = ServingEngine(params, cfg, num_slots=2, cache_len=64,
+                            prefill_len=16)
+        counters = rec.snapshot()["counters"]
+    finally:
+        tel.configure(os.environ.get(tel.ENV))
+    assert eng.stats["decode_traces"] == 1
+    assert counters[cudamon.GRAPH_CAPTURE] == 1

@@ -309,6 +309,7 @@ def test_build_keys_libraries_by_source_and_flags(monkeypatch, tmp_path):
 # ---- import isolation ------------------------------------------------------
 def _port_sources():
     return sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
+        sorted((REPO / "examples").glob("torch_*.py")) + \
         [REPO / "chip_smoke.py"]
 
 
@@ -343,6 +344,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.configs, repro_torch.models.transformer\n"
         "import repro_torch.models.rwkv\n"
         "import repro_torch.training.serve_step, repro_torch.serving\n"
+        "import repro_torch.core.tuning, repro_torch.core.telemetry\n"
+        "import repro_torch.core.telemetry.cudamon\n"
+        "import repro_torch.core.telemetry.__main__\n"
         "from repro_torch.core import conformance\n"
         "for name in sorted(conformance.CASES):\n"
         "    conformance.case_tensors(name)\n"
