@@ -19,7 +19,16 @@ ring-buffer decode attention kernel, 40 launches a call each; then RWKV
 serving: rwkv6-3b at full width and depth (32 layers, random bf16 weights
 from ``--seed``) generating for 8 prompts of 2048 tokens as one batch
 through ``serve_step.generate``, whose prefill and every decode step run the
-chunked WKV kernel, 32 launches a call.
+chunked WKV kernel, 32 launches a call; then the remaining model families,
+each through the two attention kernels: deepseek-moe-16b (MoE, 28 layers,
+33 GB of random bf16 weights) at full width and depth served by the
+engine as granite is, and through ``serve_step.generate`` hymba-1.5b
+(hybrid attention + SSM, a sliding window with global layers),
+whisper-tiny (encoder-decoder: the encoder's non-causal self-attention and
+the decoder's cross-attention), starcoder2-3b (12 query heads a kv head)
+and stablelm-1.6b at full width and depth, and pixtral-12b (vision-stub
+patches), llama4-scout-17b-a16e (MoE with patches) and deepseek-67b at
+full width, cut in depth.
 
   1. build:     nvcc for every ``csrc/*.cu`` (all started together), then
                 each kernel once on its small conformance case on the card,
@@ -136,7 +145,51 @@ chunked WKV kernel, 32 launches a call.
                 kernel against the plain chunked form and the kernel's
                 handoff on two rows of 2048 tokens, each within twice the
                 serial-against-chunked floor on the same rows;
-                two rows replayed alone (printed, not gated).
+                two rows replayed alone (printed, not gated);
+  9. families:  the decode kernel at 12 and 16 query heads per kv head at
+                the engine's step shape, and flash non-causal at
+                whisper-tiny's encoder shape (8 x 1500 frames) and its
+                cross-attention (1 and 16 queries against 1500 frames),
+                each against its plain version on every row and timed as
+                a CUDA graph beside its bound and one
+                scaled_dot_product_attention call
+                (``examples/torch_attention_layouts.py``);
+                deepseek-moe-16b through the engine
+                (the granite trace, contiguous ``run``): launch counts
+                around the build and the run (28 flash a prefill, 2 x 28
+                decode), one capture, every step a replay, a second run
+                whose tokens must equal the first's, a step's wall against
+                its replay and its top kernels (torch.profiler: 28 decode
+                kernels in the replay), the eager step against a replay on
+                the same inputs (within LOGITS_TOL of the range), each
+                piece of a MoE layer (routing, dispatch and combine
+                einsums, expert GEMMs, shared experts) as a CUDA graph at a
+                step's 8 tokens and a 2048-bucket prefill; then each of the
+                seven other archs (``FAMILIES``: rows, prompt, new tokens,
+                and the depth cut, printed) through ``generate`` with the
+                counts set to 0 just before and read just after (one flash
+                a prefill layer, one decode a step layer, whisper's
+                cross-attention a flash a layer in both), a second, timed
+                run that must give the same tokens (tok/s, TTFT, the
+                inter-token p50), and every arch's prefill logits on the
+                kernels against the plain attention's within LOGITS_TOL of
+                the range, nothing NaN, and every attention call of the
+                kernels' prefill held against the plain version on its own
+                inputs at BF16_TOL, every row (a row that admits no key
+                included: the pad rows of a left-padded prefill take MoE
+                capacity, and a prompt longer than hymba's window leaves
+                such rows that a global layer reads); for MoE each layer's
+                expert choice is pinned to the kernels' run (a top-k choice
+                flips on rounding; the unpinned difference and the flipped
+                choices are printed), and the attention check is the gate,
+                the logits printed beside it (deepseek-moe-16b's 27 MoE
+                layers carry the rounding to 1.85-2.37% of the range on an
+                H100 SXM, pinned, over five seeds); deepseek-moe-16b's
+                check runs at MOE_GATE_SEEDS seeds and must reject each
+                fault in PLANTED (a causal mask off by one, a dropped kv
+                head) planted in the kernels' attention.
+                Each model's weights, and the engine with its graph, are
+                freed before the next loads.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each record with its tuned points, their provenance and times),
@@ -169,6 +222,7 @@ import torch
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
 
 from repro_torch import _build  # noqa: E402
 from repro_torch import _sass  # noqa: E402
@@ -189,6 +243,7 @@ from repro_torch.kernels.flash_attention import kernel as attn_kernel  # noqa: E
 from repro_torch.kernels.flash_attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as attn_ref  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.common import count_params  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     init_params, tree_map)
@@ -196,7 +251,7 @@ from repro_torch.serving import (  # noqa: E402
     RESERVED_BLOCKS, ServingEngine, gather_caches, latency_summary,
     scatter_decode, synthetic_trace)
 from repro_torch.training.serve_step import (  # noqa: E402
-    decode_step, generate, prefill)
+    decode_step, generate, prefill, sample)
 from repro_torch.kernels.hartree_fock import kernel as hf_kernel  # noqa: E402
 from repro_torch.kernels.hartree_fock import ops as hf_ops  # noqa: E402
 from repro_torch.kernels.hartree_fock import ref as hf_ref  # noqa: E402
@@ -208,6 +263,7 @@ from repro_torch.kernels.rwkv6 import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
 from repro_torch.kernels.stencil7.ref import default_coefficients  # noqa: E402
+import torch_attention_layouts as layouts  # noqa: E402
 
 STREAM_N = 1 << 25     # the paper's BabelStream size
 STENCIL_L = 512        # the paper's smaller stencil volume
@@ -643,11 +699,11 @@ def attention_sweep(dev) -> None:
     worst = dict.fromkeys(ATTN, 0.0)
     calls = dict.fromkeys(ATTN, 0)
 
-    def hold(name, fn, want, live, tol, what, args):
-        # every declared point the inputs' dtype is built for
+    def hold(name, fn, want, tol, what, args):
+        # every declared point the inputs' dtype is built for, every row
         for pt in get_kernel(name).tunable_space("cuda").valid_points(*args):
-            err = attn_cases.hold_live(fn(**pt), want, live, *tol,
-                                       f"{name} sweep {what} {pt}")
+            err = max_abs_err(fn(**pt), want, *tol,
+                              f"{name} sweep {what} {pt}")
             worst[name] = max(worst[name], err)
             calls[name] += 1
 
@@ -663,12 +719,10 @@ def attention_sweep(dev) -> None:
                 pos = (None, None) if mode == "index" else (qp, kp)
                 want = attn_ref.flash_ref(q, k, v, *pos, causal=causal,
                                           window=window)
-                live = attn_ref.admitted(qp, kp, causal=causal,
-                                         window=window).any(-1)
                 hold(ATTN[0], lambda **pt: attn_kernel.flash(
                     q, k, v, *pos, causal=causal, window=window,
                     k_index_aligned=aligned, **pt),
-                    want, live[:, None].expand(b, h, s), tol,
+                    want, tol,
                     f"{mode} {dtype} dh={dh} S={s} T={t} window={window}",
                     (q, k, v))
             for b, h, kv, t, wrap, fill, window in attn_cases.DECODE_SWEEP:
@@ -677,11 +731,9 @@ def attention_sweep(dev) -> None:
                 qp, kp = (torch.tensor(x, device=dev) for x in
                           attn_cases.decode_positions(b, t, wrap, fill))
                 want = attn_ref.decode_ref(q, k, v, qp, kp, window=window)
-                live = attn_ref.admitted(qp, kp, causal=True,
-                                         window=window).any(-1)
                 hold(ATTN[1], lambda **pt: attn_kernel.decode(
                     q, k, v, qp, kp, window=window, **pt),
-                    want, live, tol,
+                    want, tol,
                     f"{dtype} dh={dh} T={t} wrap={wrap} window={window}",
                     (q, k, v, qp, kp))
     for name in ATTN:
@@ -699,9 +751,9 @@ class AttnCase:
     kwargs: Dict[str, Any]
     plain: Callable[..., torch.Tensor]
     library: Callable[..., torch.Tensor]
-    live: torch.Tensor          # output rows that admit a key
     least_flops: float          # 4 Dh flops per admitted (query, key) pair
-    least_bytes: float          # q, o, positions, the K/V rows admitted
+    least_bytes: float          # q, o, positions, the K rows admitted and
+                                # the V rows the output needs (kv_bytes)
     whole_bytes: float          # the same with every K/V row of the cache
 
 
@@ -728,15 +780,12 @@ def attention_cases(dev, seed: int) -> List[AttnCase]:
     def case(name, kwargs, plain, library):
         q, k, v, qp, kp = args = drawn[name]["args"]
         mask = attn_ref.admitted(qp, kp, causal=True)
-        kv_rows = int((kp >= 0).sum())
         row_bytes = kv * dh * k.element_size() * 2          # K and V
         fixed = 2 * q.nbytes + qp.nbytes + kp.nbytes        # q, o, positions
-        live = mask.any(-1)
-        live = (live[:, None].expand(q.shape[:3]) if name == ATTN[0]
-                else live)
-        return AttnCase(name, args, kwargs, plain, library(mask), live,
+        return AttnCase(name, args, kwargs, plain, library(mask),
                         attn_ops.least_flops(qp, kp, h, dh, causal=True),
-                        fixed + kv_rows * row_bytes,
+                        fixed + layouts.kv_bytes(
+                            k, mask, 2 if name == ATTN[0] else 1),
                         fixed + k.shape[0] * t * row_bytes)
 
     print(f"attention.flash at the serving shape: B 1, H {h}, Kv {kv}, S "
@@ -775,8 +824,8 @@ def decode_report(c: AttnCase, want: torch.Tensor, card: str
         live = int(F.pad(ok, (0, n * bkv - t)).reshape(b, n, bkv).any(-1)
                    .sum()) * kv
         splits[bkv] = {"live": live, "empty": b * n * kv - live}
-        attn_cases.hold_live(attn_kernel.decode(*c.args, **pt), want, c.live,
-                             *BF16_TOL, f"{c.name} at the serving shape {pt}")
+        max_abs_err(attn_kernel.decode(*c.args, **pt), want, *BF16_TOL,
+                    f"{c.name} at the serving shape {pt}")
         sweep[bkv] = graph_ms(lambda pt=pt: attn_kernel.decode(*c.args, **pt))
     print(f"{c.name}: one launch a call ({DECODE_KERNEL}, "
           f"{ran[DECODE_KERNEL][0]:.4f} ms by torch.profiler); split blocks "
@@ -891,6 +940,7 @@ def engine_step_report(engine: ServingEngine, cfg, card: str, label: str,
         (eager - graphed).abs().max())
     out["eager vs replay same argmax"] = bool(
         eager.argmax(-1).eq(graphed.argmax(-1)).all())
+    out["eager vs replay logits_span"] = float(eager.max() - eager.min())
     print(f"{label} engine step, 8 active slots (probe prompts "
           f"{sorted(r.prompt_len for r in probe)}), on {card}: "
           f"{out['step wall_ms']:.3f} ms wall (inputs copied, one replay, "
@@ -1641,8 +1691,8 @@ def handoff(params, cfg, prompt, cache_len, wkv_backend=None):
     one decode step of the last, and the caches: the state's handoff from
     a ragged prefill to the decode step."""
     b, s = prompt.shape
-    _, caches = prefill(params, cfg, prompt[:, :-1], cache_len=cache_len,
-                        wkv_backend=wkv_backend)
+    _, caches, _ = prefill(params, cfg, prompt[:, :-1],
+                           cache_len=cache_len, wkv_backend=wkv_backend)
     pos = torch.full((b, 1), s - 1, dtype=torch.int32, device=prompt.device)
     return decode_step(params, cfg, prompt[:, -1:], pos, caches,
                        wkv_backend=wkv_backend)
@@ -1827,6 +1877,576 @@ def serve_rwkv(dev, seed: int) -> Dict[str, Any]:
     out["rwkv decode step graph_ms"] = graphed
     print(f"rwkv decode step as one CUDA graph: {graphed:.3f} ms on the "
           f"device")
+    return out
+
+
+# ---- slice 11: the remaining model families --------------------------------
+#: deepseek-moe-16b at full width and depth, served by the engine on the
+#: granite trace's settings (SERVE, REQUESTS, MAX_NEW, contiguous ``run``)
+MOE_ARCH = "deepseek-moe-16b"
+#: seeds whose weights and prompt the MoE prefill check reads (from --seed)
+MOE_GATE_SEEDS = 5
+#: faults planted in the kernels' attention that the MoE check must reject
+PLANTED = ("causal off by one", "kv head 0 dropped")
+#: the archs that run through ``serve_step.generate``: (arch, layers kept
+#: (None: full depth), rows, prompt tokens, new tokens)
+FAMILIES = (
+    ("hymba-1.5b", None, 4, 2048, 32),
+    ("whisper-tiny", None, 8, 16, 32),
+    ("starcoder2-3b", None, 4, 512, 16),
+    ("stablelm-1.6b", None, 4, 512, 16),
+    ("pixtral-12b", 8, 4, 512, 16),
+    ("llama4-scout-17b-a16e", 4, 4, 512, 16),
+    ("deepseek-67b", 4, 4, 512, 16),
+)
+#: decode at more query heads per kv head than granite's 4, at the engine's
+#: step shape: starcoder2-3b's 24 heads over 2 kv heads, and 16
+#: (``examples/torch_attention_layouts.py``'s layouts)
+DECODE_GROUPS = ("starcoder2-3b", "G = 16")
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def family_model(arch: str, layers, dev, seed: int):
+    """An arch at full width, cut to ``layers`` layers if given, random
+    bf16 weights drawn on the card from ``seed``: (params, config, what was
+    cut, parameter GB)."""
+    free_card()
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(
+        full, n_layers=layers,
+        global_layers=tuple(i for i in full.global_layers if i < layers))
+    cut = ("none: full width and depth" if layers is None else
+           f"{layers} of {full.n_layers} layers (full width; the whole "
+           f"model is {full.total_params() / 1e9:.2f}e9 parameters, "
+           f"{2 * full.total_params() / 1e9:.1f} GB in bf16)")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev)
+    torch.cuda.synchronize()
+    n = count_params(params)
+    gb = n * torch.finfo(cfg.cdtype()).bits / 8 / 1e9
+    shape = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+             f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv of {cfg.head_dim}, "
+             f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
+    if cfg.is_moe:
+        shape += (f", {cfg.n_experts} experts top-{cfg.top_k} + "
+                  f"{cfg.n_shared_experts} shared, dense prefix "
+                  f"{cfg.dense_prefix_layers}, capacity factor "
+                  f"{cfg.moe_capacity_factor}")
+    if cfg.ssm_state:
+        shape += (f", SSM state {cfg.ssm_state}, window {cfg.window}, "
+                  f"global layers {cfg.global_layers}")
+    if cfg.is_encoder_decoder:
+        shape += (f", {cfg.n_encoder_layers} encoder layers over "
+                  f"{cfg.encoder_frames} frames")
+    if cfg.n_patches:
+        shape += f", {cfg.n_patches} patches"
+    print(f"model family {arch}: {shape}; cut: {cut}; {n / 1e9:.3f}e9 "
+          f"parameters (the reference's total_params() for this depth "
+          f"{cfg.total_params() / 1e9:.3f}e9), {gb:.2f} GB in "
+          f"{cfg.compute_dtype}, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return params, cfg, cut, gb
+
+
+def family_stubs(cfg, rows: int, dev, seed: int) -> Dict[str, torch.Tensor]:
+    """The stub frontends' inputs at std 1, drawn on the card: an
+    encoder-decoder's frame embeddings, a vision stub's patch embeddings."""
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    out = {}
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.randn(rows, cfg.encoder_frames, cfg.d_model,
+                                    generator=g, device=dev)
+    if cfg.n_patches:
+        out["patches"] = torch.randn(rows, cfg.n_patches, cfg.d_model,
+                                     generator=g, device=dev)
+    return out
+
+
+def attention_layers(cfg) -> Dict[str, int]:
+    """Attention kernel launches a prefill and a decode step make: one
+    flash a self-attention layer a prefill (the encoder's included), one
+    decode a layer a step, and an encoder-decoder's cross-attention one
+    flash a layer in each (non-causal, so never decode)."""
+    cross = cfg.n_layers if cfg.is_encoder_decoder else 0
+    return {"prefill flash": cfg.n_layers + cross + cfg.n_encoder_layers,
+            "step flash": cross, "step decode": cfg.n_layers}
+
+
+def logits_gate(got: torch.Tensor, want: torch.Tensor, what: str,
+                gated: bool = True):
+    """The bf16 gate: the kernels' logits within LOGITS_TOL of the plain
+    attention's range, nothing NaN; (err, span, rows with the same
+    argmax).  Not ``gated``: the reading is printed, and only a NaN
+    fails."""
+    got, want = got.float(), want.float()
+    if not (bool(torch.isfinite(got).all())
+            and bool(torch.isfinite(want).all())):
+        fail(f"{what}: non-finite logits")
+    err = float((got - want).abs().max())
+    span = float(want.max() - want.min())
+    same = int(got.argmax(-1).eq(want.argmax(-1)).sum())
+    print(f"{what}: max abs err {err:.4g} against a logit range of "
+          f"{span:.4g} = {err / span:.2%} ("
+          + (f"gate {LOGITS_TOL:.0%}" if gated else "not gated")
+          + f"); same argmax in {same}/{got.shape[0]} rows")
+    if gated and not err <= LOGITS_TOL * span:
+        fail(f"{what}: outside the gate")
+    return err, span, same
+
+
+@contextlib.contextmanager
+def routing(choices: List[torch.Tensor], replay: bool):
+    """Record each MoE layer's top-k expert choice (``moe.top_k``) into
+    ``choices``, in call order, or replay them: the gate values then come
+    from the run's own router probabilities at the recorded experts."""
+    real = moe.top_k
+    recorded = iter(list(choices))
+
+    def top_k(probs, k):
+        if not replay:
+            vals, idx = real(probs, k)
+            choices.append(idx)
+            return vals, idx
+        idx = next(recorded)
+        return probs.gather(-1, idx), idx
+
+    moe.top_k = top_k
+    try:
+        yield
+    finally:
+        moe.top_k = real
+
+
+@contextlib.contextmanager
+def attention_held(out: Dict[str, Any]):
+    """Hold every attention call of the block against the plain version on
+    its own inputs, every row (those that admit no key included), at
+    BF16_TOL: the kernels on the inputs the model really gives them, with
+    no error carried from layer to layer.  ``out`` gets the call count,
+    the worst error and how many calls lay outside the tolerance."""
+    real = attention.attend
+    out.update(calls=0, max_abs_err=0.0, outside=0)
+
+    def attend(q, k, v, q_pos, k_pos, **kw):
+        got = real(q, k, v, q_pos, k_pos, **kw)
+        want = attention.attend_torch(
+            q, k, v, q_pos, k_pos, n_kv_heads=kw["n_kv_heads"],
+            causal=kw["causal"], window=kw.get("window", 0)).float()
+        err = (got.float() - want).abs()
+        out["calls"] += 1
+        out["max_abs_err"] = max(out["max_abs_err"], float(err.max()))
+        out["outside"] += not bool(
+            (err <= BF16_TOL[1] + BF16_TOL[0] * want.abs()).all())
+        return got
+
+    attention.attend = attend
+    try:
+        yield out
+    finally:
+        attention.attend = real
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """A known fault in the kernels' attention, for showing that the gate
+    rejects it: ``causal off by one`` lets each prefill query see the next
+    key too (the queries' positions moved one on), ``kv head 0 dropped``
+    writes 0 for the query heads of kv head 0."""
+    real = attention.attend
+
+    def attend(q, k, v, q_pos, k_pos, **kw):
+        if fault == "causal off by one" and q.shape[1] > 1:
+            q_pos = torch.where(q_pos >= 0, q_pos + 1, q_pos)
+        out = real(q, k, v, q_pos, k_pos, **kw)
+        if fault == "kv head 0 dropped":
+            out = out.clone()
+            out[:, :, :q.shape[2] // kw["n_kv_heads"]] = 0
+        return out
+
+    attention.attend = attend
+    try:
+        yield
+    finally:
+        attention.attend = real
+
+
+def kernels_vs_plain(run: Callable[[Any], torch.Tensor], vocab: int,
+                     what: str, faults: Tuple[str, ...] = ()):
+    """The kernels' prefill (``run(None)``) against the plain attention's
+    (``run("torch")``).  Gated: every attention call of the kernels' run
+    against the plain version on its own inputs (``attention_held``), and
+    in a dense model the last logits within LOGITS_TOL of the plain
+    attention's range over the ``vocab`` real columns (the padded ones
+    hold -1e9).  In a MoE model each layer's expert choice is pinned to
+    the kernels' run (a top-k choice is discontinuous: bf16 rounding that
+    differs between the two routes flips near-tied experts, a flip changes
+    that token's output wholesale, and through the capacity which of its
+    group's tokens drop), and even pinned, deepseek-moe-16b's 27 MoE layers
+    carry the attention's rounding to 1.85-2.37% of the range (an H100
+    SXM) over five seeds while every attention call agrees at BF16_TOL, so
+    there the
+    logits are printed beside the gate, with the unpinned difference and
+    the count of flipped choices.  Each of ``faults`` is then planted in
+    the kernels' attention: the attention check must reject it, and its
+    logits are printed.  Returns (err, span, rows with the same argmax) of
+    the logits."""
+    chosen, free, held = [], [], {}
+    with routing(chosen, replay=False), attention_held(held):
+        got = run(None)[:, :vocab]
+    print(f"{what}: each of the kernels' {held['calls']} attention calls "
+          f"against the plain version on its own inputs, every row: max "
+          f"abs err {held['max_abs_err']:.4g}, {held['outside']} outside "
+          f"{BF16_TOL}")
+    if held["outside"]:
+        fail(f"{what}: {held['outside']} attention calls disagree with the "
+             f"plain version")
+    with routing(chosen, replay=True):
+        want = run("torch")[:, :vocab]
+    if chosen:
+        with routing(free, replay=False):
+            unpinned = run("torch")[:, :vocab]
+        flips = sum(int(a.sort(-1).values.ne(b.sort(-1).values).any(-1)
+                        .sum()) for a, b in zip(chosen, free))
+        tokens = sum(a.shape[0] * a.shape[1] for a in chosen)
+        print(f"{what}: the two routes chose different experts for {flips} "
+              f"of {tokens} token-layers ({len(chosen)} MoE layers); "
+              f"kernels vs plain attention, routing free: max abs err "
+              f"{float((got.float() - unpinned.float()).abs().max()):.4g} "
+              f"(not gated)")
+    gate = logits_gate(got, want, f"{what}, kernels vs plain attention"
+                       + (", routing pinned" if chosen else ""),
+                       gated=not chosen)
+    for fault in faults:
+        bad_choices, bad_held = [], {}
+        with routing(bad_choices, replay=False), planted(fault), \
+                attention_held(bad_held):
+            bad = run(None)[:, :vocab].float()
+        with routing(bad_choices, replay=True):
+            bad_want = run("torch")[:, :vocab].float()
+        err = float((bad - bad_want).abs().max())
+        span = float(bad_want.max() - bad_want.min())
+        print(f"{what}, planted fault ({fault}): {bad_held['outside']} of "
+              f"{bad_held['calls']} attention calls outside {BF16_TOL} (max "
+              f"abs err {bad_held['max_abs_err']:.4g}); the logits "
+              + ("(routing pinned) " if bad_choices else "")
+              + f"{err / span:.2%} of the range")
+        if not bad_held["outside"]:
+            fail(f"{what}: the attention check passed a planted fault "
+                 f"({fault})")
+    return gate
+
+
+def timed_generate(params, cfg, prompt, new: int, cache_len: int, stubs):
+    """``serve_step.generate``'s loop through its public steps (prefill,
+    sample, decode_step), synchronised after each, for the times: (tokens,
+    TTFT ms, the inter-token ms)."""
+    b, s = prompt.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, caches, memory = prefill(params, cfg, prompt, cache_len=cache_len,
+                                   **stubs)
+    tok = sample(last)
+    torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+    out = [tok]
+    for i in range(1, new):
+        pos = torch.full((b, 1), s + i - 1, dtype=torch.int32,
+                         device=prompt.device)
+        logits, caches = decode_step(params, cfg, tok[:, None], pos, caches,
+                                     memory=memory)
+        tok = sample(logits)
+        out.append(tok)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    return (torch.stack(out, 1), (stamps[0] - t0) * 1e3,
+            list(np.diff(stamps) * 1e3))
+
+
+def serve_family(arch: str, layers, rows: int, plen: int, new: int, dev,
+                 seed: int, card: str) -> Dict[str, Any]:
+    """One arch through ``serve_step.generate`` on the card: the attention
+    launch counts set to 0 just before and read just after (one flash a
+    prefill layer, one decode a step layer, and whisper's cross-attention
+    flash in both), the tokens in the vocabulary, the same tokens from a
+    second run (timed: TTFT, the inter-token p50, tok/s), and the
+    prefill's last logits on the kernels against the plain attention's."""
+    params, cfg, cut, gb = family_model(arch, layers, dev, seed)
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (rows, plen))).to(dev)
+    stubs = family_stubs(cfg, rows, dev, seed)
+    cache_len = plen + new
+    per = attention_layers(cfg)
+    attn_kernel.flash.launches = attn_kernel.decode.launches = 0
+    t0 = time.perf_counter()
+    toks = generate(params, cfg, prompt, max_new_tokens=new,
+                    cache_len=cache_len, **stubs)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = engine_counts()
+    expect = {ATTN[0]: per["prefill flash"] + (new - 1) * per["step flash"],
+              ATTN[1]: (new - 1) * per["step decode"]}
+    inputs = "".join(f", {k} {tuple(v.shape)}" for k, v in stubs.items())
+    print(f"main path [{arch} generate] launches: {counts} ({per} over one "
+          f"prefill and {new - 1} decode steps); {rows} x {plen} prompt "
+          f"tokens{inputs}, {new} new; the first run (builds and all) "
+          f"{first_s:.2f} s")
+    if counts != expect:
+        fail(f"{arch}: generate launched {counts}, not {expect}")
+    if tuple(toks.shape) != (rows, new) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"{arch}: tokens {tuple(toks.shape)} not all in the vocabulary")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again, ttft, itl = timed_generate(params, cfg, prompt, new, cache_len,
+                                      stubs)
+    wall = time.perf_counter() - t0
+    if not torch.equal(again, toks):
+        fail(f"{arch}: a second run chose other tokens "
+             f"({int(again.ne(toks).sum())} of {toks.numel()})")
+    out = {"cut": cut, "param_gb": gb, "launches": counts,
+           "tok_per_s": rows * new / wall, "wall_s": wall, "ttft_ms": ttft,
+           "p50_itl_ms": float(np.median(itl)),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"{arch} on {card}: {rows * new} tokens in {wall:.3f} s = "
+          f"{out['tok_per_s']:.2f} tok/s (the {rows} x {plen} prefill "
+          f"included); TTFT {ttft:.1f} ms; inter-token p50 "
+          f"{out['p50_itl_ms']:.2f} ms; peak device memory "
+          f"{out['max_memory_allocated_gb']:.2f} GB (parameters {gb:.2f} "
+          f"GB); a second run's tokens equal the first's")
+    out["logits_err"], out["logits_span"], _ = kernels_vs_plain(
+        lambda backend: prefill(params, cfg, prompt, cache_len=cache_len,
+                                attn_backend=backend, **stubs)[0],
+        cfg.vocab_size, f"{arch} prefill logits ({rows} rows of {plen})")
+    del params
+    return out
+
+
+def moe_breakdown(params, cfg, dev, bw: float, card: str
+                  ) -> Dict[str, Any]:
+    """Where a MoE layer's time goes, each piece as its own CUDA graph on
+    the first MoE layer's weights: the router with the one-hot dispatch and
+    combine tensors (``moe.route``), the dispatch einsum, the expert GEMMs
+    (``moe.bank_ffn``), the combine einsum and the shared experts, at a
+    decode step's 8 tokens and a 2048-bucket prefill's 2048."""
+    p = params["segments"][0][0]["moe"]
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for label, t in (("decode step", SERVE["num_slots"]),
+                     ("2048 prefill", max(SERVE["prefill_buckets"]))):
+        gs = moe.routing_group(t)
+        xt = torch.randn(t // gs, gs, cfg.d_model, generator=g, device=dev,
+                         dtype=cfg.cdtype())
+        kw = dict(n_experts=cfg.n_experts, k=cfg.top_k,
+                  capacity_factor=cfg.moe_capacity_factor)
+        dispatch, combine, _ = moe.route(p["router"], xt, **kw)
+        x_e = torch.einsum("gtec,gtd->gecd", dispatch, xt)
+        y_e = moe.bank_ffn(p["experts"], x_e, cfg.mlp)
+        parts = {
+            "route + one-hots": lambda: moe.route(p["router"], xt, **kw),
+            "dispatch einsum": lambda: torch.einsum("gtec,gtd->gecd",
+                                                    dispatch, xt),
+            "expert GEMMs": lambda: moe.bank_ffn(p["experts"], x_e, cfg.mlp),
+            "combine einsum": lambda: torch.einsum("gtec,gecd->gtd",
+                                                   combine, y_e),
+            "shared experts": lambda: moe.shared_ffn(p["shared"], xt,
+                                                     cfg.mlp),
+            "moe_apply": lambda: moe.moe_apply(
+                p, xt.reshape(1, t, cfg.d_model), n_experts=cfg.n_experts,
+                top_k=cfg.top_k, mlp_kind=cfg.mlp,
+                capacity_factor=cfg.moe_capacity_factor)}
+        ms = {k: graph_ms(fn) for k, fn in parts.items()}
+        cap = moe.capacity(gs, cfg.n_experts, cfg.top_k,
+                           cfg.moe_capacity_factor)
+        # every expert's weights are read whatever the routing: the dense
+        # dispatch runs each expert on its C capacity slots
+        bank_gb = sum(w.nbytes for w in p["experts"].values()) / 1e9
+        print(f"{MOE_ARCH} MoE layer at the {label} ({t} tokens, groups of "
+              f"{gs}, capacity {cap}), device ms a layer (CUDA graphs) on "
+              f"{card}: {ms}; the expert bank is {bank_gb:.3f} GB a layer "
+              f"= {bank_gb * 1e9 / bw * 1e3:.3f} ms at the data sheet's "
+              f"HBM rate; x "
+              f"{cfg.n_layers - cfg.dense_prefix_layers} MoE layers")
+        out[label] = ms
+    return out
+
+
+def serve_moe(dev, seed: int, bw: float, card: str) -> Dict[str, Any]:
+    """deepseek-moe-16b at full width and depth through ``ServingEngine``
+    on the granite trace's settings, contiguous ``run``: the launch counts
+    around the engine's build and run, one capture, every step a replay,
+    a second run's tokens against the first's, one step's wall against its
+    device time and top kernels (one decode kernel a layer in the replay),
+    the eager step against a replay on the same inputs, the MoE layer's
+    pieces, and a 2048-bucket prefill's logits against the plain
+    attention's."""
+    t_start = time.perf_counter()
+    params, cfg, cut, gb = family_model(MOE_ARCH, None, dev, seed)
+
+    def trace():
+        return serving_trace(cfg, seed)
+
+    def lap(what: str) -> None:
+        print(f"{MOE_ARCH}: {what} {time.perf_counter() - t_start:.1f} s "
+              f"into the phase")
+
+    reqs = trace()
+    attn_kernel.flash.launches = attn_kernel.decode.launches = 0
+    t0 = time.perf_counter()
+    engine = ServingEngine(params, cfg, **SERVE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if engine.attn_backends != {"prefill": "cuda", "decode": "cuda"}:
+        fail(f"{MOE_ARCH}: the engine's attention resolved to "
+             f"{engine.attn_backends}")
+    t0 = time.perf_counter()
+    finished = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, st = engine_counts(), engine.stats
+    expect = {ATTN[0]: cfg.n_layers * st["prefill_calls"],
+              ATTN[1]: 2 * cfg.n_layers}
+    print(f"main path [{MOE_ARCH} serving, contiguous] launches: {counts}; "
+          f"prefill calls {st['prefill_calls']}, decode steps "
+          f"{st['decode_steps']} (graph replays {st['graph_replays']}), "
+          f"decode_traces {st['decode_traces']}; built and captured in "
+          f"{build_s:.1f} s")
+    if counts != expect:
+        fail(f"{MOE_ARCH}: serving launched {counts}, not {expect}")
+    if st["decode_traces"] != 1 or st["graph_replays"] != st["decode_steps"]:
+        fail(f"{MOE_ARCH}: decode_traces {st['decode_traces']}, "
+             f"{st['graph_replays']} replays of {st['decode_steps']} steps: "
+             f"the step must be captured once and every step replayed")
+    done = sorted(finished, key=lambda r: r.uid)
+    if len(done) != REQUESTS or any(
+            len(r.generated) != MAX_NEW
+            or not all(0 <= x < cfg.vocab_size for x in r.generated)
+            for r in done):
+        fail(f"{MOE_ARCH}: a request did not finish with {MAX_NEW} tokens "
+             f"in the vocabulary")
+    first = {r.uid: list(r.generated) for r in done}
+    summ = latency_summary(done)
+    n_tok = st["tokens_generated"]
+    out = {"cut": cut, "param_gb": gb, "launches": counts,
+           "tok_per_s": n_tok / wall, "wall_s": wall, "build_s": build_s,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out.update({k: summ[k] for k in ("p50_ttft_s", "p95_ttft_s",
+                                     "p50_itl_s", "p50_latency_s")})
+    print(f"serving {MOE_ARCH} [contiguous] on {card}: {n_tok} tokens in "
+          f"{wall:.3f} s = {out['tok_per_s']:.2f} tok/s; TTFT p50 "
+          f"{summ['p50_ttft_s'] * 1e3:.1f} ms, p95 "
+          f"{summ['p95_ttft_s'] * 1e3:.1f} ms; inter-token p50 "
+          f"{summ['p50_itl_s'] * 1e3:.2f} ms; peak device memory "
+          f"{out['max_memory_allocated_gb']:.2f} GB (parameters {gb:.2f} GB)")
+    # the trace again: the same tokens, every step a replay of the graph
+    before = dict(st)
+    again = sorted(engine.run(trace()), key=lambda r: r.uid)
+    same = sum(r.generated == first[r.uid] for r in again)
+    steps = st["decode_steps"] - before["decode_steps"]
+    print(f"{MOE_ARCH}, the trace again: its tokens equal the first run's "
+          f"for {same}/{len(first)} requests; {steps} decode steps, "
+          f"{st['graph_replays'] - before['graph_replays']} graph replays, "
+          f"decode_traces {st['decode_traces']}")
+    if same != len(first):
+        fail(f"{MOE_ARCH}: two runs of the trace chose different tokens")
+    if st["graph_replays"] != st["decode_steps"] or \
+            st["decode_traces"] != 1:
+        fail(f"{MOE_ARCH}: the second run took a step that was no replay")
+    lap("served twice")
+    step = engine_step_report(engine, cfg, card, MOE_ARCH, seed)
+    out.update(step)
+    span = step["eager vs replay logits_span"]
+    if not step["eager vs replay max_abs_logit_diff"] <= LOGITS_TOL * span:
+        fail(f"{MOE_ARCH}: the eager step and a replay disagree by "
+             f"{step['eager vs replay max_abs_logit_diff']:.4g}, beyond "
+             f"{LOGITS_TOL} of the logit range {span:.4g}")
+    del engine, finished, done, reqs
+    free_card()
+    lap("the step measured")
+    out["moe layer"] = moe_breakdown(params, cfg, dev, bw, card)
+    lap("the MoE layer measured")
+    # a 2048-bucket prefill of the longest prompt, kernels against plain
+    req = max(trace(), key=lambda r: r.prompt_len)
+    bucket = max(SERVE["prefill_buckets"])
+    toks = torch.zeros(1, bucket, dtype=torch.int64, device=dev)
+    toks[0, bucket - req.prompt_len:] = torch.from_numpy(
+        req.prompt.astype(np.int64))
+    lengths = torch.tensor([req.prompt_len], device=dev)
+    out["logits_err"], out["logits_span"], _ = kernels_vs_plain(
+        lambda backend: prefill(params, cfg, toks,
+                                cache_len=SERVE["cache_len"],
+                                lengths=lengths, attn_backend=backend)[0],
+        cfg.vocab_size, f"{MOE_ARCH} prefill logits (prompt "
+        f"{req.prompt_len}, bucket {bucket})", faults=PLANTED)
+    lap("the logits gated")
+
+    def one_prefill():
+        prefill(params, cfg, toks, cache_len=SERVE["cache_len"],
+                lengths=lengths)
+
+    pwall = wall_ms(one_prefill, 3)
+    busy, top, flash_ms = device_profile(one_prefill, match=FLASH_KERNEL)
+    out["prefill wall_ms"], out["prefill device_ms"] = pwall, busy
+    print(f"{MOE_ARCH} prefill (bucket {bucket}): {pwall:.3f} ms wall, "
+          f"{busy:.3f} ms of kernels (torch.profiler); top kernels (name, "
+          f"ms, calls): {top}; {FLASH_KERNEL} {flash_ms:.3f} ms")
+    # the same prefill on the weights and a prompt of each of the next
+    # seeds: the attention check gated, the pinned logits read
+    ratios = {seed: out["logits_err"] / out["logits_span"]}
+    del params
+    for other in range(seed + 1, seed + MOE_GATE_SEEDS):
+        params, cfg, _, _ = family_model(MOE_ARCH, None, dev, other)
+        rng = np.random.default_rng(other)
+        toks[0, bucket - req.prompt_len:] = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, req.prompt_len))
+        err, span, _ = kernels_vs_plain(
+            lambda backend: prefill(params, cfg, toks,
+                                    cache_len=SERVE["cache_len"],
+                                    lengths=lengths, attn_backend=backend)[0],
+            cfg.vocab_size, f"{MOE_ARCH} prefill logits, seed {other} "
+            f"(prompt {req.prompt_len}, bucket {bucket})")
+        ratios[other] = err / span
+        del params
+    out["logits_err_by_seed"] = ratios
+    print(f"{MOE_ARCH}: the pinned logits' reading by seed (max abs err "
+          f"over the logit range, not gated): "
+          + ", ".join(f"{k}: {v:.2%}" for k, v in ratios.items()))
+    lap("the seeds read")
+    return out
+
+
+def family_kernel_cases(dev, seed: int, bw: float, peak_bf16: float,
+                        card: str) -> List[Dict[str, Any]]:
+    """The two attention kernels at this slice's new shapes, bf16
+    (``examples/torch_attention_layouts.py``): decode at 12 and 16 query
+    heads per kv head at the engine's step shape, flash non-causal at
+    whisper-tiny's encoder shape (8 x 1500 frames, 6 heads of 64) and its
+    cross-attention (a decode step's one query and a 16-token prompt
+    against 1500 frames).  Each against its plain version on every row at
+    BF16_TOL, then timed as a CUDA graph beside the bound and one
+    ``scaled_dot_product_attention`` call on the same inputs (GQA for
+    decode), also a graph."""
+    out = []
+    for c in layouts.cases(seed, dev, DECODE_GROUPS, prefill=False) + \
+            layouts.whisper_cases(seed, dev):
+        rec = layouts.measure(c, iters=ITERS)
+        t_ops, t_bytes = c.flops / peak_bf16, c.bytes / bw
+        rec["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        rec["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+        out.append(rec)
+        print(f"{rec['case']}: vs plain max abs err {rec['max_abs_err']:.3g}"
+              f" at {BF16_TOL}, every row; {rec['graph_ms']:.4f} ms on the "
+              f"device (CUDA graph) on {card} against a "
+              f"{rec['bound_ms']:.5f} ms bound ({rec['bound_by']}) = "
+              f"{rec['bound_ms'] / rec['graph_ms']:.1%}; library "
+              f"(scaled_dot_product_attention, a graph) "
+              f"{rec['library_ms']:.4f} ms")
     return out
 
 
@@ -2105,8 +2725,8 @@ def main() -> None:
             fail(f"{c.name}: the default backend on CUDA tensors is not "
                  f"the hand-written {k.native!r}")
         want = c.plain(*c.args, **c.kwargs)
-        err = attn_cases.hold_live(k(*c.args, **c.kwargs), want, c.live,
-                                   *BF16_TOL, f"{c.name} at the serving shape")
+        err = max_abs_err(k(*c.args, **c.kwargs), want, *BF16_TOL,
+                          f"{c.name} at the serving shape")
         ms = time_call(k.backend(k.native).fn, *c.args, iters=ITERS,
                        **c.kwargs) * 1e3
         plain_ms = time_call(c.plain, *c.args, iters=ITERS, **c.kwargs) * 1e3
@@ -2122,9 +2742,9 @@ def main() -> None:
             # every declared tile point of the bf16 kernel, as a graph
             tiles = {}
             for pt in k.tunable_space("cuda").valid_points(*c.args):
-                attn_cases.hold_live(
-                    attn_kernel.flash(*c.args, **c.kwargs, **pt), want,
-                    c.live, *BF16_TOL, f"{c.name} at the serving shape {pt}")
+                max_abs_err(attn_kernel.flash(*c.args, **c.kwargs, **pt),
+                            want, *BF16_TOL,
+                            f"{c.name} at the serving shape {pt}")
                 tiles[f"bq {pt['bq']} bk {pt['bk']}"] = graph_ms(
                     lambda pt=pt: attn_kernel.flash(*c.args, **c.kwargs,
                                                     **pt))
@@ -2147,7 +2767,7 @@ def main() -> None:
               f"reference's model, {bound_ms / ms:.2%} of the "
               f"{bound_ms:.4f} ms bound: {c.least_flops:.4g} flops of "
               f"admitted pairs, {c.least_bytes / 1e6:.2f} MB of q, o, "
-              f"positions and admitted K/V rows; the whole cache would be "
+              f"positions, admitted K rows and needed V rows; the whole cache would be "
               f"{c.whole_bytes / 1e6:.2f} MB = {c.whole_bytes / bw * 1e3:.4f}"
               f" ms), plain {plain_ms:.4f} ms, library "
               f"(scaled_dot_product_attention) {library_ms:.4f} ms, host "
@@ -2183,25 +2803,34 @@ def main() -> None:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    attn_recs = {}
     for name in ATTN:
-        rec = {"name": name, "route": get_kernel(name).native,
+        rec = attn_recs[name] = {"name": name,
+                                 "route": get_kernel(name).native,
                "source": SOURCE[name], "replaces": REPLACES[name],
                "launches": served["launches"][name],
                "device_launches": served["device_launches"][name]}
         if name == ATTN[1]:
             rec["graph_replays"] = served["replays"]
             rec["launches_counted"] = (
-                "launches: wrapper calls while each engine is built and "
-                "serves the trace, 40 in the warm-up step and 40 in the "
-                "capture, which records the kernels into the graph and "
-                "runs none; a replay runs no wrapper. device_launches: "
-                "decode_kernels by torch.profiler in a second run of the "
-                "trace on each engine, 40 in each of its graph_replays")
+                "launches: wrapper calls on every main path "
+                "(launches_by_path): while each granite-3-8b engine and "
+                "the deepseek-moe-16b engine is built and serves the "
+                "trace, a layer's in the warm-up step and in the capture, "
+                "which records the kernels into the graph and runs none (a "
+                "replay runs no wrapper), and a layer's in each decode "
+                "step of the archs served through generate. "
+                "device_launches: decode_kernels by torch.profiler in a "
+                "second run of the trace on each granite-3-8b engine, 40 "
+                "in each of its graph_replays")
         else:
             rec["launches_counted"] = (
-                "launches: wrapper calls, 40 a prefill; device_launches: "
-                "flash_wgmma_kernels by torch.profiler in a second run of "
-                "the trace on each engine")
+                "launches: wrapper calls on every main path "
+                "(launches_by_path), a self-attention layer's a prefill "
+                "(whisper-tiny's encoder layers included) and a "
+                "cross-attention layer's a prefill and a decode step; "
+                "device_launches: flash_wgmma_kernels by torch.profiler in "
+                "a second run of the trace on each granite-3-8b engine")
         rec.update(attn[name])
         rec["tuned"] = tuned_records(tuned, name)
         if name == ATTN[0]:
@@ -2222,6 +2851,31 @@ def main() -> None:
     rec["cases"] = [dict(case=label, **c) for label, c in wkv.items()]
     rec["tuned"] = tuned_records(tuned, RWKV)
     records.append(rec)
+
+    # ---- 9. the remaining model families --------------------------------
+    t0 = time.perf_counter()
+    by_path = {"granite-3-8b engines": dict(served["launches"])}
+    families = {MOE_ARCH: serve_moe(dev, args.seed, bw, card)}
+    for arch, layers, rows, plen, new in FAMILIES:
+        families[arch] = serve_family(arch, layers, rows, plen, new, dev,
+                                      args.seed, card)
+    free_card()
+    cases9 = family_kernel_cases(dev, args.seed, bw, peak_bf16, card)
+    new_s["model families"] = time.perf_counter() - t0
+    print(f"model families phase: {new_s['model families']:.1f} s")
+    for arch, fam in families.items():
+        by_path[arch] = fam["launches"]
+        summary = {k: fam[k] for k in ("cut", "param_gb", "launches",
+                                       "tok_per_s", "logits_err",
+                                       "logits_span",
+                                       "max_memory_allocated_gb")}
+        print(f"model family {arch}: {json.dumps(summary)}")
+    for name, rec in attn_recs.items():
+        rec["launches"] = sum(counts[name] for counts in by_path.values())
+        rec["launches_by_path"] = {path: counts[name]
+                                   for path, counts in by_path.items()}
+        rec["family_cases"] = [c for c in cases9 if c["case"].startswith(
+            "decode" if name == ATTN[1] else "flash")]
     print(f"torch.profiler: {len(PROFILE_LOSS)} profiles dropped their "
           f"first {min(PROFILE_LOSS)}-{max(PROFILE_LOSS)} device records "
           f"(median {int(np.median(PROFILE_LOSS))}), of the "

@@ -1,32 +1,37 @@
 """Architecture registry of the port: ``get_config(arch)`` -> ModelConfig.
 
-Only the archs whose whole serving path is ported are here; the reference's
-others (``repro/configs/__init__.py``) wait for their slices.
+The reference's ten archs (``repro/configs/__init__.py``), each with its
+full-size ``CONFIG`` and its ``SMOKE`` variant, field for field the same.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import granite_3_8b, rwkv6_3b
+from repro_torch.configs import (deepseek_67b, deepseek_moe_16b,
+                                 granite_3_8b, hymba_1_5b,
+                                 llama4_scout_17b_a16e, pixtral_12b,
+                                 rwkv6_3b, stablelm_1_6b, starcoder2_3b,
+                                 whisper_tiny)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "granite-3-8b": granite_3_8b,
+    "stablelm-1.6b": stablelm_1_6b,
+    "starcoder2-3b": starcoder2_3b,
+    "deepseek-67b": deepseek_67b,
+    "whisper-tiny": whisper_tiny,
+    "pixtral-12b": pixtral_12b,
+    "hymba-1.5b": hymba_1_5b,
     "rwkv6-3b": rwkv6_3b,
+    "deepseek-moe-16b": deepseek_moe_16b,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
 }
-
-#: the reference's other archs, each waiting for a later slice of the port
-NOT_PORTED = ("stablelm-1.6b", "starcoder2-3b", "deepseek-67b",
-              "whisper-tiny", "pixtral-12b", "hymba-1.5b",
-              "deepseek-moe-16b", "llama4-scout-17b-a16e")
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
-        why = ("not ported yet (ROADMAP.md, Queue 1)" if name in NOT_PORTED
-               else "unknown arch")
-        raise KeyError(f"{name!r}: {why}; the port has {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_MODULES)}")
     mod = _MODULES[name]
     return mod.SMOKE if smoke else mod.CONFIG
 

@@ -1,4 +1,4 @@
-"""Core: the portable-kernel registry and the paper's metrics."""
+"""Core: the portable-kernel registry, tuning and the paper's metrics."""
 
 from repro_torch.core.portable import (  # noqa: F401
     Backend,
@@ -11,6 +11,13 @@ from repro_torch.core.portable import (  # noqa: F401
     register_kernel,
     registry,
     time_call,
+)
+from repro_torch.core.tuning import (  # noqa: F401
+    TuningCache,
+    TuningKey,
+    TuningResult,
+    cached_best_params,
+    tune,
 )
 from repro_torch.core.metrics import (  # noqa: F401
     Efficiency,

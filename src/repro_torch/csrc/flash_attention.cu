@@ -14,9 +14,13 @@
 // keep them unrounded, and write the output in q's dtype.  A key is
 // admitted for a query when kp >= 0 (-1 marks an empty or pad slot),
 // kp <= qp when causal, and qp - kp < window when window > 0: the
-// reference's mask.  A query row that admits no key is written as 0,
-// never NaN (the reference's contract calls such a row garbage; the oracle
-// returns a uniform average there).
+// reference's mask.  A query row that admits no key gets what the plain
+// version and the reference's XLA path give it, never NaN: the uniform
+// average of v over all T slots, empty ones included (keyless_value).  Such
+// rows reach real outputs: a left-padded prompt's pad rows take MoE
+// capacity, and a prompt longer than a sliding window leaves the rows of
+// its first positions keyless in every windowed layer, which a global
+// layer then reads.
 //
 // Prefill.  What bounds it on the H100: operations.  A prefill of S
 // queries against its own keys does ~4 S^2/2 Dh flops per head against
@@ -101,7 +105,7 @@
 //     admitted rows lie, stay one a block; z is the grid's slowest axis, so
 //     they start first;
 //   * in a live block each thread keeps its 8 elements of the G heads' q in
-//     registers (MAXG, 4 or 8, bounds G at compile time), issues the K
+//     registers (MAXG, 4, 8 or 16, bounds G at compile time), issues the K
 //     loads of several passes (8 in bf16, 4 in float32: 32 registers)
 //     before it uses the first, interleaves the heads' shuffle sums, and
 //     issues V's first passes before the softmax, so they arrive while it
@@ -126,7 +130,7 @@ namespace {
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF (running max)
 constexpr int kFlashThreads = 256;
 constexpr int kDecodeThreads = 128;
-constexpr int kMaxGroup = 8;       // query heads per kv head (decode)
+constexpr int kMaxGroup = 16;      // query heads per kv head (decode)
 constexpr int kMaxBkv = 512;       // cache slots per decode block
 constexpr int kWindow = kDecodeThreads;  // splits the decode combine takes
                                          // at a time
@@ -150,6 +154,102 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
+}
+
+// eight consecutive elements (16-byte aligned) as loaded, before the
+// conversion to float32: a thread issues several before it uses one
+template <typename T>
+struct Raw8;
+template <>
+struct Raw8<float> {
+  float4 a, b;
+};
+template <>
+struct Raw8<__nv_bfloat16> {
+  uint4 a;
+};
+__device__ __forceinline__ Raw8<float> load_raw8(const float* ptr) {
+  return {*reinterpret_cast<const float4*>(ptr),
+          *reinterpret_cast<const float4*>(ptr + 4)};
+}
+__device__ __forceinline__ Raw8<__nv_bfloat16> load_raw8(
+    const __nv_bfloat16* ptr) {
+  return {*reinterpret_cast<const uint4*>(ptr)};
+}
+__device__ __forceinline__ void unpack8(float* out, const Raw8<float>& x) {
+  out[0] = x.a.x; out[1] = x.a.y; out[2] = x.a.z; out[3] = x.a.w;
+  out[4] = x.b.x; out[5] = x.b.y; out[6] = x.b.z; out[7] = x.b.w;
+}
+__device__ __forceinline__ void unpack8(float* out,
+                                        const Raw8<__nv_bfloat16>& x) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x.a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// A query row that admits no key.  The plain version fills every refused
+// logit with -1e30, so the softmax of such a row weighs each of the T slots
+// 1 / T (rounded to v's dtype, as every probability is before P.V) and the
+// row is that weight times the sum of v over all T slots, empty ones
+// included; the reference's XLA path gives the same row.  keyless_value
+// writes it for one kv head (`v`: T rows `ld` elements apart) to
+// red[0, DH) in a fixed order (each thread a fixed set of rows, then the
+// teams' sums in team order), so a result is repeatable.  Every thread of
+// the block calls it; red holds THREADS * VEC floats of shared memory.
+// Which rows admit no key depends on the positions alone, so a block calls
+// it only when it holds such a row, and the other blocks pay nothing.  A
+// block reads the whole of v alone, so each thread keeps U loads in flight
+// (16 x 16 bytes in bf16: 64 KB a 256-thread block) before it adds any.
+// VEC is 8 (rows 16-byte aligned) or 1 (any float32 view).
+template <typename T, int DH, int THREADS, int VEC>
+__device__ void keyless_value(const T* v, long long ld, int t, float* red,
+                              int tid) {
+  constexpr int TPR = DH / VEC;        // threads a row
+  constexpr int ROWS = THREADS / TPR;  // rows a pass
+  constexpr int U = VEC == 1 ? 8 : (sizeof(T) == 2 ? 16 : 8);
+  const int grp = tid / TPR, c = (tid % TPR) * VEC;
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  for (int base = 0; base < t; base += U * ROWS) {
+    if constexpr (VEC == 8) {
+      Raw8<T> raw[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = base + u * ROWS + grp;
+        raw[u] = r < t ? load_raw8(v + r * ld + c) : Raw8<T>{};
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float x[8];
+        unpack8(x, raw[u]);  // a zero-filled Raw8 adds 0
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] += x[e];
+      }
+    } else {
+      T raw[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = base + u * ROWS + grp;
+        raw[u] = r < t ? v[r * ld + c] : T(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) acc[0] += to_float(raw[u]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) red[grp * DH + c + e] = acc[e];
+  __syncthreads();
+  float sum = 0.f;
+  if (tid < DH)
+    for (int g = 0; g < ROWS; ++g) sum += red[g * DH + tid];
+  __syncthreads();
+  if (tid < DH) red[tid] = sum * round_to<T>(1.f / static_cast<float>(t));
+  __syncthreads();
 }
 
 __device__ __forceinline__ bool admitted(int qp, int kp, int causal,
@@ -332,14 +432,36 @@ __global__ void __launch_bounds__(kFlashThreads)
     // P buffers are rewritten after it, once every thread is past P.V
   }
 
+  // l = 0 exactly when a row admitted no key (an admitted key's own
+  // probability at the row max is 1)
+  bool keyless = false;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i;
-    if (r < nq) {
-      const float den = fmaxf(l[i], 1e-30f);
+    if (r < nq && l[i] != 0.f) {
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
-        o[(q0 + r) * p.os[2] + tx + 16 * j] = acc[i][j] / den;
+        o[(q0 + r) * p.os[2] + tx + 16 * j] = acc[i][j] / l[i];
+    }
+    keyless |= r < nq && l[i] == 0.f;
+  }
+  // rows that admit no key: the block of the group's first head writes them
+  // for every head of the group (which rows they are, and their value, do
+  // not depend on the head)
+  const int group = p.heads / p.kv_heads;
+  if (__syncthreads_or(keyless) && h % group == 0) {
+    keyless_value<float, DH, kFlashThreads, 1>(v, p.vs[2], p.t, ps, tid);
+    for (int hh = h; hh < h + group; ++hh) {
+      float* oh = static_cast<float*>(p.o) + b * p.os[0] + hh * p.os[1];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int r = ty + 16 * i;
+        if (r < nq && l[i] == 0.f) {
+#pragma unroll
+          for (int j = 0; j < DJ; ++j)
+            oh[(q0 + r) * p.os[2] + tx + 16 * j] = ps[tx + 16 * j];
+        }
+      }
     }
   }
 }
@@ -790,19 +912,46 @@ __global__ void __launch_bounds__(2 * BQ, 1)
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  // l = 0 exactly when a row admitted no key
+  const bool live0 = r0 < nq && l0 != 0.f, live1 = r1 < nq && l1 != 0.f;
+  const bool keyless0 = r0 < nq && l0 == 0.f, keyless1 = r1 < nq && l1 == 0.f;
 #pragma unroll
   for (int nb = 0; nb < L::NB; ++nb) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = nb * 64 + 8 * j + 2 * tq;
       if (col < DH) {
-        if (r0 < nq)
+        if (live0)
           *reinterpret_cast<uint32_t*>(o + (q0 + r0) * p.os[2] + col) =
-              pack_bf16(acc[nb][4 * j] / d0, acc[nb][4 * j + 1] / d0);
-        if (r1 < nq)
+              pack_bf16(acc[nb][4 * j] / l0, acc[nb][4 * j + 1] / l0);
+        if (live1)
           *reinterpret_cast<uint32_t*>(o + (q0 + r1) * p.os[2] + col) =
-              pack_bf16(acc[nb][4 * j + 2] / d1, acc[nb][4 * j + 3] / d1);
+              pack_bf16(acc[nb][4 * j + 2] / l1, acc[nb][4 * j + 3] / l1);
+      }
+    }
+  }
+  // rows that admit no key: the block of the group's first head writes them
+  // for every head of the group (which rows they are, and their value, do
+  // not depend on the head), its K/V ring reused for the sums
+  const int group = p.heads / p.kv_heads;
+  if (__syncthreads_or(keyless0 || keyless1) && h % group == 0) {
+    float* val = reinterpret_cast<float*>(smem + L::Q_BYTES);
+    keyless_value<bf16, DH, L::THREADS, 8>(v, p.vs[2], p.t, val, tid);
+    for (int hh = h; hh < h + group; ++hh) {
+      bf16* oh = static_cast<bf16*>(p.o) + b * p.os[0] + hh * p.os[1];
+#pragma unroll
+      for (int nb = 0; nb < L::NB; ++nb) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = nb * 64 + 8 * j + 2 * tq;
+          if (col < DH) {
+            const uint32_t x = pack_bf16(val[col], val[col + 1]);
+            if (keyless0)
+              *reinterpret_cast<uint32_t*>(oh + (q0 + r0) * p.os[2] + col) = x;
+            if (keyless1)
+              *reinterpret_cast<uint32_t*>(oh + (q0 + r1) * p.os[2] + col) = x;
+          }
+        }
       }
     }
   }
@@ -870,41 +1019,6 @@ struct DecodeParams {
   float scale;
 };
 
-// eight consecutive elements (16-byte aligned) as loaded, before the
-// conversion to float32: a thread issues several before it uses one
-template <typename T>
-struct Raw8;
-template <>
-struct Raw8<float> {
-  float4 a, b;
-};
-template <>
-struct Raw8<__nv_bfloat16> {
-  uint4 a;
-};
-__device__ __forceinline__ Raw8<float> load_raw8(const float* ptr) {
-  return {*reinterpret_cast<const float4*>(ptr),
-          *reinterpret_cast<const float4*>(ptr + 4)};
-}
-__device__ __forceinline__ Raw8<__nv_bfloat16> load_raw8(
-    const __nv_bfloat16* ptr) {
-  return {*reinterpret_cast<const uint4*>(ptr)};
-}
-__device__ __forceinline__ void unpack8(float* out, const Raw8<float>& x) {
-  out[0] = x.a.x; out[1] = x.a.y; out[2] = x.a.z; out[3] = x.a.w;
-  out[4] = x.b.x; out[5] = x.b.y; out[6] = x.b.z; out[7] = x.b.w;
-}
-__device__ __forceinline__ void unpack8(float* out,
-                                        const Raw8<__nv_bfloat16>& x) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x.a);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
 // the decode kernel's dynamic shared memory at its largest: logits
 // (G x bkv) + partial sums (groups x G x Dh) + flags; the combine reuses
 // the first two
@@ -914,8 +1028,12 @@ constexpr int kDecodeMaxSmem =
 // One launch a call: block (kv, b, split) writes the partial (m, l, acc) of
 // the G query heads of kv head kv over its chunk of bkv slots; the block
 // that arrives last for (b, kv) combines the partials in split order.
-// MAXG (4 or 8) bounds G at compile time, so that q, the logits and the
-// accumulators of the G heads sit in registers, unrolled.
+// MAXG (4, 8 or 16) bounds G at compile time, so that q, the logits and the
+// accumulators of the G heads sit in registers, unrolled.  At 8 < G <= 16
+// one 16-head tile measured as fast as two 8-head tiles looping over the
+// same K/V rows (0.0500 against 0.0502 ms at G = 12, 0.0561 against 0.0564
+// at G = 16: the engine's 8-row step on a 4096-slot cache, bf16, Dh 128,
+// CUDA graphs, H100 SXM at 700 W), so the kernel keeps the one tile.
 template <typename T, int DH, int MAXG>
 __global__ void __launch_bounds__(kDecodeThreads)
     decode_kernel(const DecodeParams p) {
@@ -1199,11 +1317,20 @@ __global__ void __launch_bounds__(kDecodeThreads)
   }
   T* out = static_cast<T*>(p.o) +
            (static_cast<long long>(b) * p.heads + kvh * G) * DH;
+  if (l_s[0] == 0.f) {
+    // the row admits no key (its G heads share its position): every split
+    // was empty, and the row is the plain version's value
+    keyless_value<T, DH, kDecodeThreads, 8>(
+        static_cast<const T*>(p.v) + b * p.vs[0] + kvh * p.vs[2], p.vs[1],
+        p.t, smem, tid);
+    for (int i = tid; i < G * DH; i += kDecodeThreads)
+      out[i] = from_float<T>(smem[i % DH]);
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < OUT; ++j) {
     const int i = tid + j * kDecodeThreads;
-    if (i < G * DH)
-      out[i] = from_float<T>(o[j] / fmaxf(l_s[i / DH], 1e-30f));
+    if (i < G * DH) out[i] = from_float<T>(o[j] / l_s[i / DH]);
   }
 }
 
@@ -1227,9 +1354,10 @@ int launch_decode(const DecodeParams& p, int batch, cudaStream_t stream) {
 
 template <typename T, int DH>
 int decode_group(const DecodeParams& p, int batch, cudaStream_t stream) {
-  if (p.heads / p.kv_heads <= 4)
-    return launch_decode<T, DH, 4>(p, batch, stream);
-  return launch_decode<T, DH, 8>(p, batch, stream);
+  const int g = p.heads / p.kv_heads;
+  if (g <= 4) return launch_decode<T, DH, 4>(p, batch, stream);
+  if (g <= 8) return launch_decode<T, DH, 8>(p, batch, stream);
+  return launch_decode<T, DH, 16>(p, batch, stream);
 }
 
 template <typename T>
@@ -1282,7 +1410,7 @@ extern "C" int flash_attention_fwd(
 // kv_heads ints that are 0 before the call and are 0 again after it.  A
 // launch that faults midway may leave them nonzero: a process that caught
 // such an error must not reuse that buffer.  The caller checks shapes,
-// dtypes, alignment, heads / kv_heads <= 8 and bkv <= 512.
+// dtypes, alignment, heads / kv_heads <= 16 and bkv <= 512.
 extern "C" int decode_attention_fwd(
     int dtype, int dh, const void* q, const void* k, const void* v, void* o,
     const int* q_pos, const int* k_pos, float* m_part, float* l_part,

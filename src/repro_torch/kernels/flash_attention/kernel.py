@@ -53,7 +53,7 @@ FLASH_DEFAULT = {torch.float32: (64, 64), torch.bfloat16: (128, 128)}
 BKV = 128
 HEAD_DIMS = (16, 32, 64, 128)
 #: query heads per kv head the decode kernel holds (its register tile)
-MAX_GROUP = 8
+MAX_GROUP = 16
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: the decode kernel's arrival counters, one buffer a device index

@@ -67,6 +67,15 @@ def attend_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, s, h, dh).to(q.dtype)
 
 
+def keyless(v: torch.Tensor) -> torch.Tensor:
+    """v (B, Kv, T, Dh) -> (B, Kv, Dh) float32: what ``attend_torch`` gives
+    a query row that admits no key.  Every logit of such a row is the same
+    ``NEG_INF`` fill, so the softmax weighs each of the T slots 1 / T,
+    rounded to v's dtype like every probability, empty slots included."""
+    w = torch.tensor(1.0 / v.shape[2]).to(v.dtype).float()
+    return v.float().sum(2) * w
+
+
 def _index_positions(b: int, n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device).expand(b, n)
 
@@ -111,9 +120,8 @@ def decode_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits, the sum of their exps and the exps (rounded to v's dtype) times
     v.  A chunk that admits no key of a row gives m = -1e30, l = 0 and no
     acc.  The combine takes the chunks in order, skips the empty ones and
-    rescales the rest to the overall max.  A row that admits no key is 0,
-    where ``decode_ref`` returns the uniform average (both garbage by the
-    reference's contract)."""
+    rescales the rest to the overall max.  A row that admits no key gets
+    ``keyless``, as the kernel writes it."""
     b, _, h, dh = q.shape
     t, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -139,5 +147,7 @@ def decode_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         w = torch.exp(m - mx)
         l_sum = torch.where(live, l_sum + l_part * w, l_sum)
         out = torch.where(live[..., None], out + acc * w[..., None], out)
-    out = out / l_sum.clamp_min(1e-30)[..., None]
+    out = torch.where(l_sum[..., None] > 0,
+                      out / l_sum.clamp_min(1e-30)[..., None],
+                      keyless(v.transpose(1, 2))[:, :, None])
     return out.reshape(b, 1, h, dh).to(q.dtype)

@@ -33,7 +33,10 @@ graph looks its params up while it is captured, so a replay runs the
 tuned ``bkv`` and no Python; an eager prefill looks up per call, through
 a per-process memo, so a repeated shape costs one dict lookup.
 
-Cross-attention memory waits for a later slice (ROADMAP item 8).
+Cross-attention (an encoder-decoder's decoder) takes the encoder memory's
+K/V from ``cross_kv`` through ``attention_apply(memory_kv=, memory_pos=)``:
+non-causal, so even its one-query decode calls route to the prefill kernel,
+as the reference's do.
 """
 
 from __future__ import annotations
@@ -291,32 +294,52 @@ def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
                     causal: bool = True, window: int = 0,
                     use_rope: bool = True, rope_theta: float = 1e4,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
+                    memory_kv: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None,
+                    memory_pos: Optional[torch.Tensor] = None,
                     backend: Optional[str] = None,
                     ) -> Tuple[torch.Tensor,
                                Optional[Dict[str, torch.Tensor]]]:
-    """One self-attention sublayer.
+    """One attention sublayer.
 
     * training / prefill without a cache: full-sequence self-attention;
     * with a cache (K/V/pos ring buffer): the new tokens are written into
-      it in place, then attend to the whole cache; x is (B, S, D).
+      it in place, then attend to the whole cache; x is (B, S, D);
+    * cross-attention: ``memory_kv`` = (k, v) from ``cross_kv`` over the
+      encoder's output, at positions ``memory_pos`` (B, T); ``causal``
+      must be False, and the cache is neither read nor written.
     ``backend`` selects the registry attention backend (see ``attend``).
     Returns (output, cache).
     """
     b, s, _ = x.shape
     q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
-    k = (x @ p["wk"]).reshape(b, s, n_kv_heads, head_dim)
-    v = (x @ p["wv"]).reshape(b, s, n_kv_heads, head_dim)
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
-    k_pos, k_index_aligned = positions, True
-    if cache is not None:
-        _write_cache(cache, k, v, positions)
-        k, v, k_pos = cache["k"], cache["v"], cache["pos"]
-        # a multi-token prefill against a ring shorter than the padded
-        # length wraps: slot index no longer tracks position
-        k_index_aligned = s == 1 or k.shape[1] >= s
+    if memory_kv is not None:
+        (k, v), k_pos = memory_kv, memory_pos
+        k_index_aligned = False      # encoder memory: arbitrary positions
+    else:
+        k = (x @ p["wk"]).reshape(b, s, n_kv_heads, head_dim)
+        v = (x @ p["wv"]).reshape(b, s, n_kv_heads, head_dim)
+        if use_rope:
+            k = apply_rope(k, positions, rope_theta)
+        k_pos, k_index_aligned = positions, True
+        if cache is not None:
+            _write_cache(cache, k, v, positions)
+            k, v, k_pos = cache["k"], cache["v"], cache["pos"]
+            # a multi-token prefill against a ring shorter than the padded
+            # length wraps: slot index no longer tracks position
+            k_index_aligned = s == 1 or k.shape[1] >= s
     out = attend(q, k, v, positions, k_pos, n_kv_heads=n_kv_heads,
                  causal=causal, window=window, backend=backend,
                  k_index_aligned=k_index_aligned)
     return out.reshape(b, s, n_heads * head_dim) @ p["wo"], cache
+
+
+def cross_kv(p: Params, memory: torch.Tensor, n_kv_heads: int,
+             head_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V from encoder memory (B, T, D)."""
+    b, t, _ = memory.shape
+    k = (memory @ p["wk"]).reshape(b, t, n_kv_heads, head_dim)
+    v = (memory @ p["wv"]).reshape(b, t, n_kv_heads, head_dim)
+    return k, v

@@ -1,23 +1,40 @@
-"""Model assembly: the dense decoder-only LM over a *layer plan*.
+"""Model assembly: decoder-only and encoder-decoder LMs over a *layer plan*.
 
-The port of the dense decoder-only part of ``repro/models/transformer.py``.
-The reference stacks homogeneous runs of layers and drives them with
-``lax.scan``; here a scan segment is a Python loop over its layers, whose
-parameters are a list of per-layer dicts.  Caches keep the reference's
-layout — ``{"eager": {id: cache}, "segments": [stacked cache]}``, a segment's
-leaves stacked on a leading layer axis — so a slot of the serving engine is
-one row of a few tensors, and each layer writes its view of them in place.
+The port of ``repro/models/transformer.py``.  The reference stacks
+homogeneous runs of layers and drives them with ``lax.scan``; here a scan
+segment is a Python loop over its layers, whose parameters are a list of
+per-layer dicts.  Layers that differ structurally (deepseek-moe's dense
+first layer, hymba's global-attention layers) run as eager entries with
+their own parameters, as in the reference.  Caches keep the reference's
+layout — ``{"eager": {id: cache}, "segments": [stacked cache]}``, a
+segment's leaves stacked on a leading layer axis — so a slot of the
+serving engine is one row of a few tensors, and each layer writes its view
+of them in place.
 
 Weights are held once in the compute dtype (the reference casts every layer
 to it at each call, ``cast_tree``, which gives the same values); the final
-norm's scale stays in the parameter dtype, as the reference uses it uncast.
+norms' scales (the decoder's and the encoder's) stay in the parameter
+dtype, as the reference uses them uncast.
 
-RWKV layers (``models/rwkv.py``) keep their recurrent state in the cache:
-``{"wkv": (B, H, 64, 64) float32, "tm_last", "cm_last": (B, 1, d)}`` a
-layer, stacked like the K/V of an attention segment, and written in place.
+A layer is one of:
 
-MoE, SSM, cross-attention and encoder branches wait for later slices of the
-port and raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+  * attention + MLP (dense decoder-only archs, and the encoder's layers,
+    which attend non-causally);
+  * attention + MoE (``models/moe.py``), after ``dense_prefix_layers``
+    dense layers; ``forward`` returns the summed load-balance aux loss;
+  * hymba's hybrid: attention and an SSM head (``models/ssm.py``) on the
+    same normed input, fused as the mean of the two normed outputs; the
+    SSM keeps ``{"ssm": (B, Di, N) float32, "conv": (B, 3, Di)}`` in the
+    cache beside the K/V, written in place;
+  * an encoder-decoder's decoder layer: self-attention, then
+    cross-attention to the encoder memory (its K/V recomputed from the
+    memory at every call, as the reference does), then the MLP;
+  * RWKV (``models/rwkv.py``), whose recurrent state lives in the cache:
+    ``{"wkv": (B, H, 64, 64) float32, "tm_last", "cm_last": (B, 1, d)}``.
+
+Vision-stub archs take ``patches`` (B, P, D), added to the first P token
+embeddings; audio-stub (encoder-decoder) archs take ``frames`` (B, T, D),
+or the ``memory`` that ``encode`` made of them.
 """
 
 from __future__ import annotations
@@ -31,7 +48,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (Params, apply_mlp, apply_norm,
                                        dense_init, embed_init, mlp_init,
                                        norm_init)
@@ -69,25 +88,20 @@ def layer_kind(cfg: ModelConfig, idx: int) -> Dict[str, Any]:
     window = 0 if (is_global or not cfg.window) else cfg.window
     return {"moe": use_moe, "window": window,
             "cross": cfg.is_encoder_decoder, "rwkv": cfg.rwkv,
-            "ssm": cfg.ssm_state > 0}
-
-
-def _require_dense(cfg: ModelConfig, kind: Dict[str, Any]) -> None:
-    missing = [k for k in ("moe", "ssm", "cross") if kind[k]]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: the {'/'.join(missing)} layer branch is not ported "
-            f"yet (ROADMAP.md, Queue 1 item 8); the port runs dense "
-            f"decoder-only attention layers and RWKV layers")
+            "ssm": cfg.ssm_state > 0, "causal": True}
 
 
 # --------------------------------------------------------------------------
 # single decoder layer
 # --------------------------------------------------------------------------
-def layer_init(gen: torch.Generator, cfg: ModelConfig, idx: int,
-               device) -> Params:
-    kind = layer_kind(cfg, idx)
-    _require_dense(cfg, kind)
+#: the layer kind of an encoder layer: non-causal attention + dense MLP
+ENCODER_KIND = {"moe": False, "window": 0, "cross": False, "rwkv": False,
+                "ssm": False, "causal": False}
+
+
+def layer_init(gen: torch.Generator, cfg: ModelConfig, idx: int, device, *,
+               encoder: bool = False) -> Params:
+    kind = ENCODER_KIND if encoder else layer_kind(cfg, idx)
     d, dt = cfg.d_model, cfg.cdtype()
     if kind["rwkv"]:
         # rwkv keeps its pre-norms with the block, as the reference's
@@ -96,14 +110,30 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, idx: int,
                                            device, cfg.n_layers),
                 "ln_tm": norm_init(d, cfg.norm, dt, device),
                 "ln_cm": norm_init(d, cfg.norm, dt, device)}
-    return {
+    p: Params = {
         "ln1": norm_init(d, cfg.norm, dt, device),
         "attn": attn.attention_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                     cfg.head_dim, dt, device, cfg.n_layers),
         "ln2": norm_init(d, cfg.norm, dt, device),
-        "mlp": mlp_init(gen, d, cfg.dense_ff(), cfg.mlp, dt, device,
-                        cfg.n_layers),
     }
+    if kind["moe"]:
+        p["moe"] = moe_mod.moe_init(gen, d, cfg.d_ff, cfg.n_experts,
+                                    cfg.n_shared_experts, cfg.mlp, dt,
+                                    device, cfg.n_layers)
+    else:
+        ff = cfg.d_ff if encoder else cfg.dense_ff()
+        p["mlp"] = mlp_init(gen, d, ff, cfg.mlp, dt, device, cfg.n_layers)
+    if kind["ssm"]:
+        p["ssm"] = ssm_mod.ssm_init(gen, d, cfg.n_heads * cfg.head_dim,
+                                    cfg.ssm_state, dt, device, cfg.n_layers)
+        p["ln_attn_br"] = norm_init(d, cfg.norm, dt, device)
+        p["ln_ssm_br"] = norm_init(d, cfg.norm, dt, device)
+    if kind["cross"]:
+        p["ln_cross"] = norm_init(d, cfg.norm, dt, device)
+        p["cross"] = attn.attention_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                         cfg.head_dim, dt, device,
+                                         cfg.n_layers)
+    return p
 
 
 def _rwkv_layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -133,23 +163,57 @@ def _rwkv_layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
 def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 kind: Dict[str, Any], *, positions: torch.Tensor,
                 cache: Optional[Params] = None,
-                wkv_backend: Optional[str] = None) -> torch.Tensor:
-    """One pre-norm layer (attention + MLP, or RWKV time + channel mix);
-    writes ``cache`` in place.  ``wkv_backend`` picks the RWKV layers' WKV
+                memory: Optional[torch.Tensor] = None,
+                memory_pos: Optional[torch.Tensor] = None,
+                wkv_backend: Optional[str] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One pre-norm layer of ``kind`` (``layer_kind``, or ``ENCODER_KIND``
+    for an encoder layer, whose self-attention is not causal) -> (x, its
+    MoE aux loss or None); writes ``cache`` in place.  ``memory`` (B, T, D)
+    at ``memory_pos`` feeds the cross-attention of an encoder-decoder's
+    decoder layer.  ``wkv_backend`` picks the RWKV layers' WKV
     (``models/rwkv.py::resolve_wkv_backend``)."""
-    _require_dense(cfg, kind)
     if kind["rwkv"]:
-        return _rwkv_layer_apply(p, x, cfg, cache, wkv_backend)
-    h = apply_norm(p["ln1"], x, cfg.norm, bf16_mul=cfg.norm_bf16_mul)
+        return _rwkv_layer_apply(p, x, cfg, cache, wkv_backend), None
+    norm = dict(kind=cfg.norm, bf16_mul=cfg.norm_bf16_mul)
+    h = apply_norm(p["ln1"], x, **norm)
     a_out, _ = attn.attention_apply(
         p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim, positions=positions, use_rope=cfg.use_rope,
-        rope_theta=cfg.rope_theta, causal=True, window=kind["window"],
+        rope_theta=cfg.rope_theta, causal=kind["causal"],
+        window=kind["window"],
         cache=None if cache is None else cache["self"],
         backend=cfg.attn_backend)
+    if kind["ssm"]:
+        s_out, (ssm_state, conv_state) = ssm_mod.ssm_apply(
+            p["ssm"], h, state=None if cache is None else cache["ssm"],
+            conv_state=None if cache is None else cache["conv"])
+        # hymba fusion: mean of the two normalized branch outputs
+        a_out = 0.5 * (apply_norm(p["ln_attn_br"], a_out, **norm)
+                       + apply_norm(p["ln_ssm_br"], s_out, **norm))
+        if cache is not None:
+            cache["ssm"].copy_(ssm_state)
+            cache["conv"].copy_(conv_state)
     x = x + a_out
-    h = apply_norm(p["ln2"], x, cfg.norm, bf16_mul=cfg.norm_bf16_mul)
-    return x + apply_mlp(p["mlp"], h, cfg.mlp)
+    if kind["cross"] and memory is not None:
+        h = apply_norm(p["ln_cross"], x, **norm)
+        # the cross K/V are projected from the memory at every call, as the
+        # reference does (it notes a cross K/V cache as an optimisation)
+        mk, mv = attn.cross_kv(p["cross"], memory, cfg.n_kv_heads,
+                               cfg.head_dim)
+        c_out, _ = attn.attention_apply(
+            p["cross"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, positions=positions, causal=False,
+            use_rope=False, memory_kv=(mk, mv), memory_pos=memory_pos,
+            backend=cfg.attn_backend)
+        x = x + c_out
+    h = apply_norm(p["ln2"], x, **norm)
+    if kind["moe"]:
+        m_out, aux = moe_mod.moe_apply(
+            p["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+            mlp_kind=cfg.mlp, capacity_factor=cfg.moe_capacity_factor)
+        return x + m_out, aux
+    return x + apply_mlp(p["mlp"], h, cfg.mlp), None
 
 
 # --------------------------------------------------------------------------
@@ -158,9 +222,8 @@ def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> Params:
     """Random weights drawn from ``generator`` on ``device``, in the
-    compute dtype (tables padded to ``cfg.padded_vocab``)."""
-    if cfg.is_encoder_decoder:
-        _require_dense(cfg, layer_kind(cfg, 0))
+    compute dtype (tables padded to ``cfg.padded_vocab``); the final norms'
+    scales in the parameter dtype."""
     dt = cfg.cdtype()
     params: Params = {
         "embed": embed_init(generator, cfg.padded_vocab, cfg.d_model, dt,
@@ -175,6 +238,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params["segments"] = [
         [layer_init(generator, cfg, i, device) for i in range(lo, hi)]
         for kind, (lo, hi) in ((k, a) for k, a in plan if k == "scan")]
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "layers": [layer_init(generator, cfg, i, device, encoder=True)
+                       for i in range(cfg.n_encoder_layers)],
+            "final_norm": norm_init(cfg.d_model, cfg.norm, cfg.pdtype(),
+                                    device)}
     return params
 
 
@@ -195,13 +264,15 @@ def _first_leaf(tree: Any) -> Any:
 
 
 def params_from_jax(tree: Params, cfg: ModelConfig,
-                    device="cpu") -> Params:
+                    device="cuda") -> Params:
     """The reference's ``init_params`` pytree (numpy arrays, or anything
-    ``numpy.asarray`` takes) -> the port's parameters on ``device``.
+    ``numpy.asarray`` takes) -> the port's parameters on ``device`` (the
+    card unless the caller asks for another).
 
-    Stacked ``segments`` leaves are split into per-layer dicts; every array
-    is cast to the compute dtype, except the final norm's scale, which
-    keeps the parameter dtype, so both packages compute the same thing.
+    Stacked ``segments`` leaves (and the encoder's stacked layers) are split
+    into per-layer dicts; every array is cast to the compute dtype, except
+    the final norms' scales, which keep the parameter dtype, so both
+    packages compute the same thing.
     """
     def leaf(dtype):
         def conv(a):
@@ -209,6 +280,11 @@ def params_from_jax(tree: Params, cfg: ModelConfig,
             arr = np.array(a, dtype=np.float32)      # a writable copy
             return torch.from_numpy(arr).to(device=device, dtype=dtype)
         return conv
+
+    def unstack(seg):
+        stacked = tree_map(leaf(cdt), seg)
+        return [tree_map(lambda t, i=i: t[i].clone(), stacked)
+                for i in range(len(_first_leaf(stacked)))]
 
     cdt = cfg.cdtype()
     out: Params = {"embed": leaf(cdt)(tree["embed"]),
@@ -218,12 +294,12 @@ def params_from_jax(tree: Params, cfg: ModelConfig,
         out["unembed"] = leaf(cdt)(tree["unembed"])
     out["eager"] = {k: tree_map(leaf(cdt), v)
                     for k, v in tree["eager"].items()}
-    out["segments"] = []
-    for seg in tree["segments"]:
-        stacked = tree_map(leaf(cdt), seg)
-        out["segments"].append(
-            [tree_map(lambda t, i=i: t[i].clone(), stacked)
-             for i in range(len(_first_leaf(stacked)))])
+    out["segments"] = [unstack(seg) for seg in tree["segments"]]
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {"layers": unstack(enc["layers"]),
+                          "final_norm": tree_map(leaf(cfg.pdtype()),
+                                                 enc["final_norm"])}
     return out
 
 
@@ -250,51 +326,80 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 def _run_layers(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, caches: Optional[Params] = None,
-                wkv_backend: Optional[str] = None) -> torch.Tensor:
-    """Execute the layer plan; each layer writes its cache view in place."""
+                memory: Optional[torch.Tensor] = None,
+                memory_pos: Optional[torch.Tensor] = None,
+                wkv_backend: Optional[str] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Execute the layer plan; each layer writes its cache view in place.
+    Returns (x, the sum of the MoE layers' aux losses, float32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     seg_i = 0
     for tag, arg in layer_plan(cfg):
         if tag == "eager":
-            c = None if caches is None else caches["eager"][str(arg)]
-            x = layer_apply(params["eager"][str(arg)], x, cfg,
-                            layer_kind(cfg, arg), positions=positions,
-                            cache=c, wkv_backend=wkv_backend)
-            continue
-        kind = layer_kind(cfg, arg[0])    # homogeneous within a segment
-        seg_cache = None if caches is None else caches["segments"][seg_i]
-        for i, lp in enumerate(params["segments"][seg_i]):
+            layers = [(arg, params["eager"][str(arg)],
+                       None if caches is None else caches["eager"][str(arg)])]
+        else:
+            seg_cache = None if caches is None else caches["segments"][seg_i]
             # layer i's views of the segment's stacked leaves
-            c = None if seg_cache is None else tree_map(
-                lambda t, i=i: t[i], seg_cache)
-            x = layer_apply(lp, x, cfg, kind, positions=positions, cache=c,
-                            wkv_backend=wkv_backend)
-        seg_i += 1
-    return x
+            layers = [(arg[0], lp, None if seg_cache is None else tree_map(
+                lambda t, i=i: t[i], seg_cache))
+                for i, lp in enumerate(params["segments"][seg_i])]
+            seg_i += 1
+        for idx, lp, c in layers:       # homogeneous within a segment
+            x, a = layer_apply(lp, x, cfg, layer_kind(cfg, idx),
+                               positions=positions, cache=c, memory=memory,
+                               memory_pos=memory_pos,
+                               wkv_backend=wkv_backend)
+            if a is not None:
+                aux = aux + a
+    return x, aux
+
+
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whisper-style encoder over stub frame embeddings (B, T, D) ->
+    (memory (B, T, D), its positions (B, T) int32)."""
+    b, t, _ = frames.shape
+    cdt = cfg.cdtype()
+    pos = torch.arange(t, dtype=torch.int32,
+                       device=frames.device).expand(b, t)
+    x = frames.to(cdt) + _sinusoidal(pos, cfg.d_model).to(cdt)
+    enc = params["encoder"]
+    for lp in enc["layers"]:
+        x, _ = layer_apply(lp, x, cfg, ENCODER_KIND, positions=pos)
+    return apply_norm(enc["final_norm"], x, cfg.norm,
+                      bf16_mul=cfg.norm_bf16_mul), pos
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
-            caches: Optional[Params] = None, last_only: bool = False,
+            caches: Optional[Params] = None,
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None,
+            memory: Optional[torch.Tensor] = None, last_only: bool = False,
             lengths: Optional[torch.Tensor] = None,
             attn_backend: Optional[str] = None,
             wkv_backend: Optional[str] = None
-            ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """tokens (B, S) -> (logits (B, S, V), caches).
+            ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """tokens (B, S) -> (logits (B, S, V), caches, aux).
 
     ``caches`` (from ``init_caches``) are written in place and returned.
-    ``last_only`` projects logits for the final position only (prefill
-    serving).  ``lengths`` (B,) are true prompt lengths of a left-padded
-    batch (pads masked via position -1, see ``leftpad_positions``), ignored
-    when ``positions`` are given.  ``attn_backend`` overrides
-    ``cfg.attn_backend`` for this call, ``wkv_backend`` picks the RWKV
-    layers' WKV (``models/rwkv.py::resolve_wkv_backend``).  Padded vocab
-    columns get -1e9.
-    The reference's third result, the MoE auxiliary loss, comes with MoE.
+    ``frames`` (B, T, D): the audio stub's frame embeddings, which an
+    encoder-decoder encodes into its memory; ``memory`` (B, T, D): that
+    memory, precomputed (decode steps pass it, so as not to re-encode).
+    ``patches`` (B, P, D): the vision stub's patch embeddings, added to the
+    first P token embeddings (early fusion).  ``last_only`` projects logits
+    for the final position only (prefill serving).  ``lengths`` (B,) are
+    true prompt lengths of a left-padded batch (pads masked via position
+    -1, see ``leftpad_positions``), ignored when ``positions`` are given.
+    ``attn_backend`` overrides ``cfg.attn_backend`` for this call,
+    ``wkv_backend`` picks the RWKV layers' WKV
+    (``models/rwkv.py::resolve_wkv_backend``).  Padded vocab columns get
+    -1e9.  ``aux`` is the MoE layers' summed load-balance loss (float32;
+    0 without MoE layers).
     """
     if attn_backend is not None:
         cfg = dataclasses.replace(cfg, attn_backend=attn_backend)
-    if cfg.is_encoder_decoder:
-        _require_dense(cfg, layer_kind(cfg, 0))
     b, s = tokens.shape
     if positions is None:
         if lengths is not None:
@@ -302,11 +407,30 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         else:
             positions = torch.arange(s, dtype=torch.int32,
                                      device=tokens.device).expand(b, s)
-    x = params["embed"][tokens]
+    x = params["embed"][tokens]            # a new tensor: added to in place
+    if patches is not None:
+        x[:, :patches.shape[1]] += patches.to(x.dtype)
     if not cfg.use_rope and not cfg.rwkv:
         x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
-    x = _run_layers(params, x, cfg, positions=positions, caches=caches,
-                    wkv_backend=wkv_backend)
+
+    memory_pos = None
+    if cfg.is_encoder_decoder:
+        if memory is None:
+            if frames is None:
+                raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                                 f"`frames` or `memory`")
+            memory, memory_pos = encode(params, cfg, frames)
+        else:
+            t = memory.shape[1]
+            memory_pos = torch.arange(t, dtype=torch.int32,
+                                      device=memory.device).expand(
+                                          memory.shape[0], t)
+    else:
+        memory = None
+
+    x, aux = _run_layers(params, x, cfg, positions=positions, caches=caches,
+                         memory=memory, memory_pos=memory_pos,
+                         wkv_backend=wkv_backend)
     x = apply_norm(params["final_norm"], x, cfg.norm,
                    bf16_mul=cfg.norm_bf16_mul)
     if last_only:
@@ -317,7 +441,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         pad = torch.arange(cfg.padded_vocab, device=logits.device) \
             >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e9)
-    return logits, caches
+    return logits, caches, aux
 
 
 def cache_seq_lens(cfg: ModelConfig, seq_len: int) -> Dict[str, Any]:
@@ -341,15 +465,17 @@ def cache_seq_lens(cfg: ModelConfig, seq_len: int) -> Dict[str, Any]:
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
                 device) -> Params:
     """Decode caches per the layer plan (ring buffers for SWA layers),
-    K/V in the compute dtype; an RWKV layer's state float32 and its last
-    tokens in the compute dtype.  A segment's leaves are stacked on a
+    K/V in the compute dtype; a hybrid layer's SSM state float32 and its
+    conv state in the compute dtype; an RWKV layer's state float32 and its
+    last tokens in the compute dtype.  A segment's leaves are stacked on a
     leading layer axis."""
     lens = cache_seq_lens(cfg, seq_len)
+    cdt = cfg.cdtype()
 
-    def one(n_layers: int, cache_len: int) -> Params:
+    def one(idx: int, n_layers: int, cache_len: int) -> Params:
+        shape = (n_layers, batch)
         if cfg.rwkv:
-            shape = (n_layers, batch)
-            d, cdt = cfg.d_model, cfg.cdtype()
+            d = cfg.d_model
             return {"wkv": torch.zeros(*shape, d // 64, 64, 64,
                                        dtype=torch.float32, device=device),
                     "tm_last": torch.zeros(*shape, 1, d, dtype=cdt,
@@ -357,20 +483,25 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
                     "cm_last": torch.zeros(*shape, 1, d, dtype=cdt,
                                            device=device)}
         c = attn.init_cache(n_layers * batch, cache_len, cfg.n_kv_heads,
-                            cfg.head_dim, cfg.cdtype(), device)
-        return {"self": {k: t.view(n_layers, batch, *t.shape[1:])
-                         for k, t in c.items()}}
+                            cfg.head_dim, cdt, device)
+        out = {"self": {k: t.view(*shape, *t.shape[1:])
+                        for k, t in c.items()}}
+        if layer_kind(cfg, idx)["ssm"]:
+            di = cfg.n_heads * cfg.head_dim
+            out["ssm"] = torch.zeros(*shape, di, cfg.ssm_state,
+                                     dtype=torch.float32, device=device)
+            out["conv"] = torch.zeros(*shape, ssm_mod.CONV_WIDTH - 1, di,
+                                      dtype=cdt, device=device)
+        return out
 
     caches: Params = {"eager": {}, "segments": []}
     seg_i = 0
     for tag, arg in layer_plan(cfg):
-        _require_dense(cfg, layer_kind(cfg, arg if tag == "eager"
-                                       else arg[0]))
         if tag == "eager":
-            c = one(1, lens["eager"][str(arg)])
+            c = one(arg, 1, lens["eager"][str(arg)])
             caches["eager"][str(arg)] = tree_map(lambda t: t[0], c)
         else:
             caches["segments"].append(
-                one(arg[1] - arg[0], lens["segments"][seg_i]))
+                one(arg[0], arg[1] - arg[0], lens["segments"][seg_i]))
             seg_i += 1
     return caches

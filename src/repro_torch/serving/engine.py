@@ -49,9 +49,13 @@ Two driver loops share the admission and decode core:
     lock, and the decode loop runs on the calling thread under the same
     lock, so the prefill and the graph's replay never overlap on the card.
 
-Supported models: dense decoder-only attention archs.  RWKV, SSM and
+Supported models: decoder-only attention archs, dense or MoE (the MoE
+layer's dense dispatch has static shapes and no host sync, so its decode
+step captures like a dense one; its capacity depends on the batch, so at
+a capacity factor that drops tokens the engine's greedy tokens can differ
+from an unbatched ``generate``'s, as the reference's can).  RWKV, SSM and
 encoder-decoder state is per-request state this slot scatter does not
-carry.
+carry, and those archs are refused, as the reference refuses them.
 
 Telemetry (``core/telemetry``; off by default) records the reference's
 lifecycle events at the same host-level sites: the instants
@@ -307,8 +311,9 @@ class ServingEngine:
             c["self"]["pos"].fill_(-1)
         lengths = torch.tensor([length], dtype=torch.int32,
                                device=self.device)
-        logits, small = forward(self.params, self.cfg, tokens, caches=small,
-                                lengths=lengths, last_only=True)
+        logits, small, _ = forward(self.params, self.cfg, tokens,
+                                   caches=small, lengths=lengths,
+                                   last_only=True)
         if table_row is None:
             scatter_slot_cache(self.caches, small, slot)
         else:

@@ -3,8 +3,10 @@
 The port of ``repro/training/serve_step.py``.  Greedy sampling is
 ``argmax``; temperature sampling draws from a ``torch.Generator`` (one per
 request in the engine) — ``jax.random`` key streams cannot be reproduced,
-so cross-framework tests compare greedy tokens only.  Encoder-decoder
-memory and vision patches come with those archs (ROADMAP).
+so cross-framework tests compare greedy tokens only.  An encoder-decoder's
+``frames`` are encoded once, in ``prefill``, which returns the memory that
+every ``decode_step`` then takes; a vision-stub arch's ``patches`` go into
+the prefill.
 
 ``attn_backend`` and ``wkv_backend`` pick the attention and RWKV WKV
 backends of every call (``models/attention.py::resolve_attention_backend``,
@@ -20,15 +22,20 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import Params, forward, init_caches
+from repro_torch.models.transformer import (Params, encode, forward,
+                                            init_caches)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             cache_len: int, lengths: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None,
             attn_backend: Optional[str] = None,
             wkv_backend: Optional[str] = None
-            ) -> Tuple[torch.Tensor, Params]:
-    """Process the prompt into fresh caches.  Returns (last_logits, caches).
+            ) -> Tuple[torch.Tensor, Params, Optional[torch.Tensor]]:
+    """Process the prompt into fresh caches.  Returns (last_logits, caches,
+    memory): ``memory`` is the encoder's output for an encoder-decoder
+    (from ``frames``), else None.
 
     ``lengths``: (B,) true prompt lengths for a LEFT-padded mixed batch;
     pads are masked out of attention and the KV cache, and the returned
@@ -36,23 +43,30 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions must then start at ``lengths[b]``.
     """
     caches = init_caches(cfg, tokens.shape[0], cache_len, tokens.device)
-    logits, caches = forward(params, cfg, tokens, caches=caches,
-                             last_only=True, lengths=lengths,
-                             attn_backend=attn_backend,
-                             wkv_backend=wkv_backend)
-    return logits[:, -1], caches
+    memory = None
+    if cfg.is_encoder_decoder and frames is not None:
+        memory, _ = encode(params, cfg, frames)   # else forward raises
+    logits, caches, _ = forward(params, cfg, tokens, caches=caches,
+                                patches=patches, memory=memory,
+                                last_only=True, lengths=lengths,
+                                attn_backend=attn_backend,
+                                wkv_backend=wkv_backend)
+    return logits[:, -1], caches, memory
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, caches: Params, *,
+                memory: Optional[torch.Tensor] = None,
                 attn_backend: Optional[str] = None,
                 wkv_backend: Optional[str] = None
                 ) -> Tuple[torch.Tensor, Params]:
     """One token for every sequence.  tokens/positions (B, 1); the caches
-    are updated in place and returned."""
-    logits, caches = forward(params, cfg, tokens, positions=positions,
-                             caches=caches, attn_backend=attn_backend,
-                             wkv_backend=wkv_backend)
+    are updated in place and returned.  ``memory``: ``prefill``'s, for an
+    encoder-decoder."""
+    logits, caches, _ = forward(params, cfg, tokens, positions=positions,
+                                caches=caches, memory=memory,
+                                attn_backend=attn_backend,
+                                wkv_backend=wkv_backend)
     return logits[:, -1], caches
 
 
@@ -89,18 +103,23 @@ def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor, *,
              max_new_tokens: int, cache_len: int,
              generator: Optional[torch.Generator] = None,
              temperature: float = 0.0,
+             frames: Optional[torch.Tensor] = None,
+             patches: Optional[torch.Tensor] = None,
              attn_backend: Optional[str] = None,
              wkv_backend: Optional[str] = None) -> torch.Tensor:
     """Greedy/temperature generation loop: prompt (B, S) -> (B, new)."""
     b, s = prompt.shape
-    last, caches = prefill(params, cfg, prompt, cache_len=cache_len,
-                           attn_backend=attn_backend, wkv_backend=wkv_backend)
+    last, caches, memory = prefill(params, cfg, prompt, cache_len=cache_len,
+                                   frames=frames, patches=patches,
+                                   attn_backend=attn_backend,
+                                   wkv_backend=wkv_backend)
     tok = sample(last, generator, temperature)
     out = [tok]
     for i in range(1, max_new_tokens):
         pos = torch.full((b, 1), s + i - 1, dtype=torch.int32,
                          device=prompt.device)
         logits, caches = decode_step(params, cfg, tok[:, None], pos, caches,
+                                     memory=memory,
                                      attn_backend=attn_backend,
                                      wkv_backend=wkv_backend)
         tok = sample(logits, generator, temperature)

@@ -50,7 +50,8 @@ def _configs(compute_dtype="float32", **changes):
 def _both(compute_dtype="float32", **changes):
     jcfg, cfg = _configs(compute_dtype, **changes)
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
-    params = T.params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    params = T.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                               "cpu")
     return jcfg, jparams, cfg, params
 
 
@@ -74,21 +75,8 @@ def test_config_fields_and_counts_equal_the_reference():
 
 
 def test_unported_archs_raise_naming_the_roadmap():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("hymba-1.5b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
-
-
-@pytest.mark.parametrize("changes,match", [
-    ({"n_experts": 4, "top_k": 2}, "moe"), ({"ssm_state": 4}, "ssm"),
-    ({"is_encoder_decoder": True}, "cross")])
-def test_unported_branches_raise(changes, match):
-    cfg = dataclasses.replace(get_config(ARCH, smoke=True), **changes)
-    with pytest.raises(NotImplementedError, match=match):
-        T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_caches(cfg, 1, 8, "cpu")
 
 
 # ---- model ------------------------------------------------------------------
@@ -120,7 +108,7 @@ def test_forward_logits_match_the_reference(compute_dtype, tol, changes):
     for kw in ({}, {"lengths": lengths}):
         want, _, _ = JT.forward(jparams, jcfg, jnp.asarray(toks),
                                 **{k: jnp.asarray(v) for k, v in kw.items()})
-        got, caches = T.forward(params, cfg, torch.from_numpy(toks),
+        got, caches, _ = T.forward(params, cfg, torch.from_numpy(toks),
                                 **{k: torch.from_numpy(v)
                                    for k, v in kw.items()})
         assert caches is None and got.shape == (3, 12, cfg.padded_vocab)

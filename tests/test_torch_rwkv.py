@@ -242,7 +242,8 @@ def _both(compute_dtype="float32"):
     cfg = dataclasses.replace(get_config(ARCH, smoke=True),
                               compute_dtype=compute_dtype)
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
-    params = T.params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    params = T.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                               "cpu")
     return jcfg, jparams, cfg, params
 
 
@@ -280,7 +281,7 @@ def test_forward_logits_match_the_reference(compute_dtype, tol, s):
     jcfg, jparams, cfg, params = _both(compute_dtype)
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, s))
     want, _, _ = JT.forward(jparams, jcfg, jnp.asarray(toks))
-    got, caches = T.forward(params, cfg, torch.from_numpy(toks))
+    got, caches, _ = T.forward(params, cfg, torch.from_numpy(toks))
     assert caches is None and got.shape == (3, s, cfg.padded_vocab)
     _close(got.float().numpy(), np.asarray(want, np.float32), tol)
 
@@ -306,8 +307,8 @@ def test_prefill_caches_equal_the_reference():
     toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 64))
     want_logits, want_caches, _ = JS.prefill(jparams, jcfg,
                                              jnp.asarray(toks), cache_len=80)
-    got_logits, caches = SS.prefill(params, cfg, torch.from_numpy(toks),
-                                    cache_len=80)
+    got_logits, caches, _ = SS.prefill(params, cfg, torch.from_numpy(toks),
+                                       cache_len=80)
     _close(got_logits.numpy(), np.asarray(want_logits), F32_TOL)
     for name in ("wkv", "tm_last", "cm_last"):
         _close(caches["segments"][0][name].numpy(),
@@ -333,12 +334,13 @@ def test_decode_matches_prefill():
     s = 12
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (1, s)))
-    full, _ = T.forward(params, cfg, toks)
+    full, _, _ = T.forward(params, cfg, toks)
     caches = T.init_caches(cfg, 1, 32, "cpu")
     outs = []
     for t in range(s):
-        lg, caches = T.forward(params, cfg, toks[:, t:t + 1],
-                               positions=torch.full((1, 1), t), caches=caches)
+        lg, caches, _ = T.forward(params, cfg, toks[:, t:t + 1],
+                                  positions=torch.full((1, 1), t),
+                                  caches=caches)
         outs.append(lg[:, 0])
     err = float((torch.stack(outs, 1).float() - full.float()).abs().max())
     assert err < 0.15, err
@@ -355,8 +357,8 @@ def test_wkv_backend_choice_and_no_fallback():
     with pytest.raises(KeyError, match="unknown WKV backend"):
         SS.generate(params, cfg, toks, max_new_tokens=2, cache_len=8,
                     wkv_backend="pallas")
-    a, _ = T.forward(params, cfg, toks)
-    b, _ = T.forward(params, cfg, toks, wkv_backend="torch")
+    a, _, _ = T.forward(params, cfg, toks)
+    b, _, _ = T.forward(params, cfg, toks, wkv_backend="torch")
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 

@@ -64,7 +64,8 @@ def _configs(**changes):
 def _both(**changes):
     jcfg, cfg = _configs(**changes)
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
-    params = T.params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    params = T.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                               "cpu")
     return jcfg, jparams, cfg, params
 
 

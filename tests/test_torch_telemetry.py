@@ -310,7 +310,8 @@ def _both():
     cfg = dataclasses.replace(get_config(ARCH, smoke=True),
                               compute_dtype="float32")
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
-    params = T.params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    params = T.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                               "cpu")
     return jcfg, jparams, cfg, params
 
 

@@ -606,3 +606,19 @@ def test_torch_route_records_no_tuning(monkeypatch):
     assert A.dispatch_log()["decode"]["tuning"] == "n/a"
     A.reset_dispatch_log()
     assert A.dispatch_records() == []
+
+
+@pytest.mark.parametrize("module", ["portable", "tuning", "metrics"])
+def test_core_exports_the_references_names_of_the_ported_modules(module):
+    """``repro_torch.core`` re-exports every name that ``repro.core``
+    re-exports from the modules the port has (the roofline and HLO names
+    come with their modules)."""
+    import repro.core as jax_core
+    import repro_torch.core as core
+    theirs = {name for name in dir(jax_core)
+              if getattr(getattr(jax_core, name), "__module__", None)
+              == f"repro.core.{module}"}
+    assert theirs
+    assert {name for name in theirs if not hasattr(core, name)} == set()
+    for name in theirs:
+        assert getattr(core, name).__module__ == f"repro_torch.core.{module}"
