@@ -28,7 +28,9 @@ whisper-tiny (encoder-decoder: the encoder's non-causal self-attention and
 the decoder's cross-attention), starcoder2-3b (12 query heads a kv head)
 and stablelm-1.6b at full width and depth, and pixtral-12b (vision-stub
 patches), llama4-scout-17b-a16e (MoE with patches) and deepseek-67b at
-full width, cut in depth.
+full width, cut in depth; then training: stablelm-1.6b at full width and
+depth (random float32 masters from ``--seed``) through ``train_step`` on
+the plain ``torch`` routes, which launch no hand-written kernel.
 
   1. build:     nvcc for every ``csrc/*.cu`` (all started together), then
                 each kernel once on its small conformance case on the card,
@@ -189,7 +191,36 @@ full width, cut in depth.
                 fault in PLANTED (a causal mask off by one, a dropped kv
                 head) planted in the kernels' attention.
                 Each model's weights, and the engine with its graph, are
-                freed before the next loads.
+                freed before the next loads;
+  10. training: stablelm-1.6b at full width and depth (24 layers, 1.644e9
+                random float32 master parameters from the seed, bf16
+                compute; 26.3 GB of masters, gradients and moments):
+                ``train_step`` with 4 microbatches and remat, AdamW at
+                the reference's defaults but ``warmup_steps=2``, on
+                ``SyntheticLM`` batches of 8 x 4096 tokens, so every
+                attention call takes the chunked path (4 q chunks, 10
+                key-chunk steps causal); a warm-up step, then 5 timed
+                steps (median wall, tokens/s, peak memory, the
+                model-flops share 6 N D + the causal attention's flops
+                over the step time x 989 TFLOP/s), one step under
+                ``torch.profiler`` (its device-busy time, idle share and
+                top device operations) and the chunked attention's share
+                of a step (one call's forward and backward timed with CUDA
+                events, times the calls a step makes).  Seven gates, each
+                failing the script: (1) no hand-written kernel launches
+                during a step, every attention dispatch record ``torch``,
+                24 x 4 x 2 chunked calls; (2) ``forward`` on parameters
+                that require grad on the default backends, and
+                ``train_step`` under ``REPRO_ATTN_BACKEND=cuda``, raise the
+                guard's error; (3) the loss and grad norm finite, every
+                parameter leaf moved; (4) 8 steps on one repeated batch of
+                2 x 4096 lower the loss; (5) 2 microbatches against 1 on
+                it (``MICROBATCH_TOL``); (6) the chunked path against the
+                full-matrix ``attend_torch`` on one step (``CHUNKED_TOL``);
+                (7) a checkpoint saved after a step, 2 more steps, then the
+                restore, ``seek`` and the same 2 steps (``RESUME_TOL``;
+                bitwise equality printed).  Gates 2 and 4-7 run at 4 of
+                the 24 layers, at full width.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each record with its tuned points, their provenance and times),
@@ -242,11 +273,19 @@ from repro_torch.kernels.flash_attention import cases as attn_cases  # noqa: E40
 from repro_torch.kernels.flash_attention import kernel as attn_kernel  # noqa: E402,E501
 from repro_torch.kernels.flash_attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as attn_ref  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    DataConfig, SyntheticLM, to_device)
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.chunked_attention import attend_chunked  # noqa: E402,E501
 from repro_torch.models.common import count_params  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    init_params, tree_map)
+    forward, init_params, tree_map)
+from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from repro_torch.optim.adamw import leaves as tree_leaves  # noqa: E402
+from repro_torch.training.train_step import (  # noqa: E402
+    TrainConfig, make_train_state, train_step)
 from repro_torch.serving import (  # noqa: E402
     RESERVED_BLOCKS, ServingEngine, gather_caches, latency_summary,
     scatter_decode, synthetic_trace)
@@ -616,31 +655,36 @@ def graph_ms(fn: Callable[[], Any], iters: int = ITERS) -> float:
 
 
 @contextlib.contextmanager
-def profiling():
-    """``torch.profiler`` (host and CUDA activity) over the block.  The
-    profiler can drop the first device records of a session, a count that
-    grows as the process ages: late in this script that was once every
-    record of ten one-token WKV calls, five sessions in a row.
-    PROFILE_FILLER launches of ``torch.cuda._sleep``'s spin kernel go
-    first and take the loss, which ``PROFILE_LOSS`` keeps a session;
-    ``device_kernels`` leaves them out."""
+def profiling(host: bool = True):
+    """``torch.profiler`` (host and CUDA activity, or with ``host=False``
+    CUDA activity alone) over the block.  The profiler can drop the first
+    device records of a session, a count that grows as the process ages:
+    late in this script that was once every record of ten one-token WKV
+    calls, five sessions in a row.  PROFILE_FILLER launches of
+    ``torch.cuda._sleep``'s spin kernel go first and take the loss, which
+    ``PROFILE_LOSS`` keeps a session; ``device_kernels`` leaves them out.
+    The records are averaged by name once, into ``prof.averages``: that
+    costs ~70 us a record on the host, minutes for a training step's host
+    records, which ``host=False`` leaves out."""
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        activities.append(torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=activities) as prof:
         for _ in range(PROFILE_FILLER):
             torch.cuda._sleep(1)
         torch.cuda.synchronize()
         yield prof
         torch.cuda.synchronize()
+    prof.averages = prof.key_averages()
     PROFILE_LOSS.append(PROFILE_FILLER - sum(
-        e.count for e in prof.key_averages() if FILLER_KERNEL in e.key))
+        e.count for e in prof.averages if FILLER_KERNEL in e.key))
 
 
 def device_kernels(prof) -> List[Any]:
     """The profile's device records by name (``key_averages``), without
     the spin kernels that ``profiling`` put ahead of the block."""
-    return [e for e in prof.key_averages()
+    return [e for e in prof.averages
             if e.device_type == torch.autograd.DeviceType.CUDA
             and FILLER_KERNEL not in e.key]
 
@@ -1205,16 +1249,22 @@ def serve(params, cfg, param_gb: float, dev, seed: int, card: str
     lengths = torch.tensor([req.prompt_len], device=dev)
     got = prefill(params, cfg, toks, cache_len=SERVE["cache_len"],
                   lengths=lengths)[0].float()
+    # the torch route takes the chunked path here (S 2048, T 4096), whose
+    # keyless pad rows average v over the key chunks they reach, not all T;
+    # the last position's logits do not read them
+    chunked0 = attend_chunked.calls
     want = prefill(params, cfg, toks, cache_len=SERVE["cache_len"],
                    lengths=lengths, attn_backend="torch")[0].float()
+    chunked = attend_chunked.calls - chunked0
     valid = want[:, :cfg.vocab_size]
     err = float((got - want)[:, :cfg.vocab_size].abs().max())
     span = float(valid.max() - valid.min())
     same = bool(got.argmax(-1).eq(want.argmax(-1)).all())
     print(f"prefill logits (prompt {req.prompt_len}, bucket {bucket}), "
-          f"kernels vs plain attention: max abs err {err:.4g} against a "
-          f"logit range of {span:.4g} (gate {LOGITS_TOL} of it); same "
-          f"argmax: {same}")
+          f"kernels vs plain attention ({chunked} of its {cfg.n_layers} "
+          f"attention calls on the chunked path): max abs err {err:.4g} "
+          f"against a logit range of {span:.4g} (gate {LOGITS_TOL} of it); "
+          f"same argmax: {same}")
     if not err <= LOGITS_TOL * span:
         fail("prefill logits with the kernels disagree with the plain "
              "attention's")
@@ -2450,6 +2500,390 @@ def family_kernel_cases(dev, seed: int, bw: float, peak_bf16: float,
     return out
 
 
+# ---- slice 12: training ----------------------------------------------------
+TRAIN_ARCH = "stablelm-1.6b"
+#: the timed run: 8 x 4096 tokens a step in 4 microbatches of 2 x 4096, so
+#: every attention call takes the chunked path (S = T = 4096: 4 q chunks,
+#: 10 key-chunk steps causal)
+TRAIN = {"rows": 8, "seq": 4096, "microbatches": 4, "timed": 5}
+#: the gates on one batch of 2 x 4096 (one microbatch's worth)
+TRAIN_GATE_ROWS = 2
+OVERFIT_STEPS = 8
+#: depth of gates 2 and 4-7 (full width): each is a property of the step,
+#: not of the depth, and the full depth's steps take ~2.4 s at 2 x 4096
+TRAIN_CUT_LAYERS = 4
+RESUME_AT, RESUME_STEPS = 1, 2
+#: (relative) two microbatches against one: loss, grad norm
+MICROBATCH_TOL = (1e-3, 1e-2)
+#: (relative) the chunked path against the full-matrix attend_torch: loss,
+#: grad norm (the full path rounds its probabilities to bf16, v's dtype,
+#: before P.V; the chunked path keeps them float32)
+CHUNKED_TOL = (1e-3, 2e-2)
+#: (relative) resumed steps against the uninterrupted ones: loss
+RESUME_TOL = 1e-4
+#: hand-written wrappers whose launch counts must stay 0 in training
+HAND_WRITTEN = ("attention.flash", "attention.decode", RWKV) + KERNELS
+#: the torch route's test for the chunked path (gate 6 turns it off)
+TAKES_CHUNKED = attention.takes_chunked
+
+
+def launch_counters() -> Dict[str, Any]:
+    """Every hand-written wrapper that counts its launches, by name."""
+    out = {name: get_kernel(name).backend(get_kernel(name).native).fn
+           for name in HAND_WRITTEN}
+    out["hartree_fock.twoel"] = hf_kernel.twoel
+    out[SLAB] = hf_kernel.twoel_slab
+    return out
+
+
+def kernel_label(key: str, width: int = 110) -> str:
+    """A CUDA kernel's name without the namespaces and ``void``, cut to
+    ``width``: an ATen elementwise kernel's functor then shows."""
+    return re.sub(r"\bvoid |at::native::|\(anonymous namespace\)::|"
+                  r"at::|std::", "", key)[:width]
+
+
+def kernel_kind(key: str) -> str:
+    """A CUDA kernel's kind, by its name: float32 GEMMs (in a training
+    step, the chunked attention's float32 tiles), the other GEMMs (bf16),
+    elementwise kernels, reductions, or other."""
+    if "gemm" in key or "nvjet" in key:
+        return "float32 GEMMs" if "f32f32" in key else "bf16 GEMMs"
+    if "elementwise" in key:
+        return "elementwise"
+    if "reduce" in key:
+        return "reductions"
+    return "other"
+
+
+def train_model(cfg, dev, seed: int):
+    """(float32 master parameters drawn on the card from ``seed``, their
+    count)."""
+    free_card()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         dev, dtype=cfg.pdtype())
+    return params, count_params(params)
+
+
+def train_batch(cfg, rows: int, seq: int, seed: int, step: int, dev):
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=rows, seed=seed))
+    return to_device(data.batch_at(step), dev)
+
+
+def moved_leaves(before, after) -> Tuple[int, int]:
+    """(leaves of ``after`` that differ from ``before`` somewhere, leaves)."""
+    pairs = list(zip(tree_leaves(before), tree_leaves(after)))
+    return sum(bool(a.ne(b).any()) for a, b in pairs), len(pairs)
+
+
+def model_flops(cfg, n_params: int, rows: int, seq: int) -> float:
+    """6 N D + the causal attention's 12 L H Dh B S(S+1)/2: the forward
+    and backward work of the model, the remat recompute not counted."""
+    pairs = rows * seq * (seq + 1) / 2
+    return (6.0 * n_params * rows * seq
+            + 12.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * pairs)
+
+
+def chunked_share(cfg, dev, seed: int, step_ms: float, calls: int
+                  ) -> Tuple[float, float, float]:
+    """(forward ms, forward + backward ms, share of a step) of one
+    ``attend_chunked`` call at a microbatch's shapes (bf16 q, k, v), timed
+    with CUDA events: a layer runs it forward twice a step (remat's
+    recompute) and backward once, ``calls`` / 2 layers' worth."""
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    b, s = TRAIN_GATE_ROWS, TRAIN["seq"]
+    shape = (b, s, cfg.n_heads, cfg.head_dim)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(
+        torch.bfloat16).requires_grad_() for _ in range(3))
+    pos = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    kw = dict(n_kv_heads=cfg.n_kv_heads, causal=True)
+    w = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def fwd():
+        return attend_chunked(q, k, v, pos, pos, **kw)
+
+    def fwd_bwd():
+        torch.autograd.grad((fwd() * w).float().sum(), (q, k, v))
+
+    fwd_ms, both_ms = events_ms(fwd, iters=3), events_ms(fwd_bwd, iters=3)
+    per_step = calls / 2 * (fwd_ms + both_ms)
+    return fwd_ms, both_ms, per_step / step_ms
+
+
+def guard_gates(cfg, params, batch, tcfg) -> None:
+    """Gate 2: ``forward`` on the card with parameters that require grad
+    and the default backends raises the guard's error, and so does
+    ``train_step`` under ``REPRO_ATTN_BACKEND=cuda``."""
+    leaves_rg = tree_map(lambda t: t.detach().requires_grad_(), params)
+    try:
+        forward(leaves_rg, cfg, batch["tokens"][:, :256])
+    except RuntimeError as e:
+        if "has no backward" not in str(e):
+            raise
+        print(f"training gate 2a: forward on grad-requiring parameters with "
+              f"the default backends raised: {str(e)[:90]}...")
+    else:
+        fail("training: forward with grad-requiring parameters on the "
+             "hand-written kernels did not raise")
+    state = make_train_state(params, tcfg)
+    os.environ[attention.ATTN_BACKEND_ENV] = "cuda"
+    try:
+        train_step(state, batch, cfg=cfg, tcfg=tcfg)
+    except RuntimeError as e:
+        if "has no backward" not in str(e):
+            raise
+        print(f"training gate 2b: train_step under REPRO_ATTN_BACKEND=cuda "
+              f"raised: {str(e)[:90]}...")
+    else:
+        fail("training: train_step under REPRO_ATTN_BACKEND=cuda did not "
+             "raise")
+    finally:
+        del os.environ[attention.ATTN_BACKEND_ENV]
+
+
+def train_phase(dev, seed: int, card: str, peak_bf16: float
+                ) -> Dict[str, Any]:
+    """Phase 10: stablelm-1.6b trained at full width and depth (float32
+    masters, bf16 compute, AdamW at the reference's defaults but
+    ``warmup_steps=2``), with its seven gates."""
+    t_start = time.perf_counter()
+
+    def lap(what: str) -> None:
+        print(f"training: {what} done {time.perf_counter() - t_start:.1f} s "
+              f"into the phase")
+
+    full = get_config(TRAIN_ARCH)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("training: torch.backends.cuda.matmul.allow_tf32 is on; the "
+             "float32 GEMMs would run on TF32")
+    rows, seq, mbs = TRAIN["rows"], TRAIN["seq"], TRAIN["microbatches"]
+    tcfg = TrainConfig(microbatches=mbs, remat=True,
+                       opt=AdamWConfig(warmup_steps=2))
+    params, n = train_model(full, dev, seed)
+    state_gb = 16 * n / 1e9
+    logits_gb = 4 * TRAIN_GATE_ROWS * seq * full.padded_vocab / 1e9
+    print(f"training {TRAIN_ARCH}: {full.n_layers} layers, d_model "
+          f"{full.d_model}, {full.n_heads} heads of {full.head_dim}, d_ff "
+          f"{full.d_ff}, vocab {full.vocab_size} (untied); {n / 1e9:.4f}e9 "
+          f"float32 master parameters, compute {full.compute_dtype}; state "
+          f"(masters, gradients, mu, nu) {state_gb:.2f} GB, a microbatch's "
+          f"float32 logits {logits_gb:.2f} GB; {rows} x {seq} tokens a step "
+          f"in {mbs} microbatches, remat on; AdamW {tcfg.opt}")
+    counters = launch_counters()
+    batches = [train_batch(full, rows, seq, seed, i, dev)
+               for i in range(TRAIN["timed"] + 1)]
+
+    # warm-up step: health (gate 3) and route (gate 1)
+    state = make_train_state(params, tcfg)
+    del params
+    for w in counters.values():
+        w.launches = 0
+    attention.reset_dispatch_log()
+    calls0 = attend_chunked.calls
+    new, m = train_step(state, batches[0], cfg=full, tcfg=tcfg)
+    torch.cuda.synchronize()
+    chunked_calls = attend_chunked.calls - calls0
+    records = attention.dispatch_records()
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    if not (math.isfinite(loss) and math.isfinite(gnorm)):
+        fail(f"training gate 3: loss {loss}, grad norm {gnorm}")
+    moved, total = moved_leaves(state["params"], new["params"])
+    if moved != total:
+        fail(f"training gate 3: {total - moved} of {total} parameter leaves "
+             f"did not move")
+    print(f"training gate 3: step 1 loss {loss:.6f}, grad norm "
+          f"{gnorm:.6f}, lr {float(m['lr']):.3e}; {moved} of {total} "
+          f"parameter leaves moved")
+    state = new
+    del new
+    hand = {k: w.launches for k, w in counters.items()}
+    want_calls = full.n_layers * mbs * 2
+    routes = sorted({r["backend"] for r in records})
+    print(f"training gate 1: hand-written kernel launches during the step "
+          f"{hand}; {len(records)} attention dispatch records, backends "
+          f"{routes}; {chunked_calls} chunked attention calls ({full.n_layers}"
+          f" layers x {mbs} microbatches x (forward + remat recompute) = "
+          f"{want_calls})")
+    if any(hand.values()) or routes != ["torch"] \
+            or len(records) != want_calls or chunked_calls != want_calls:
+        fail("training gate 1: the step left the plain torch route")
+    lap("the warm-up step (gates 1 and 3)")
+
+    # the timed steps
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], [loss]
+    for b in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, b, cfg=full, tcfg=tcfg)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = float(np.median(walls))
+    tok_s = rows * seq / step_ms * 1e3
+    flops = model_flops(full, n, rows, seq)
+    mfu = flops / (step_ms / 1e3) / peak_bf16
+    print(f"training {TRAIN_ARCH} on {card}: step wall ms {walls}, median "
+          f"{step_ms:.1f}, {tok_s:.0f} tokens/s; losses {losses}; peak "
+          f"memory {peak_gb:.2f} GB; model flops {flops:.4e} a step = 6 N D "
+          f"+ 12 L H Dh B S(S+1)/2 (N {n}, D {rows * seq}, L {full.n_layers},"
+          f" H {full.n_heads}, Dh {full.head_dim}, B {rows}, S {seq}; the "
+          f"remat recompute not counted), model-flops share "
+          f"{mfu:.2%} of {peak_bf16 / 1e12:.0f} TFLOP/s bf16")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"training: non-finite losses {losses}")
+    lap("the timed steps")
+
+    # one step under torch.profiler (device records only: a step makes
+    # ~10^5 host records)
+    with profiling(host=False) as prof:
+        t0 = time.perf_counter()
+        state, m = train_step(state, batches[1], cfg=full, tcfg=tcfg)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    print(f"training step under torch.profiler: {prof_ms:.1f} ms wall, "
+          f"{busy:.1f} ms of device records, idle share "
+          f"{max(0.0, 1 - busy / prof_ms):.1%}; top device operations: "
+          + "; ".join(f"{kernel_label(e.key)} {e.self_device_time_total /
+                                               1e3:.1f} ms x{e.count}"
+                      for e in top))
+    kinds: Dict[str, float] = {}
+    for e in kernels:
+        kinds[kernel_kind(e.key)] = kinds.get(kernel_kind(e.key), 0.0) \
+            + e.self_device_time_total / 1e3
+    print("training step's device time by kind of kernel: " + ", ".join(
+        f"{k} {v:.1f} ms ({v / busy:.1%})"
+        for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+    fwd_ms, both_ms, share = chunked_share(full, dev, seed, step_ms,
+                                           want_calls)
+    print(f"chunked attention at a microbatch's shapes (B {TRAIN_GATE_ROWS},"
+          f" S = T {seq}, {full.n_heads} heads of {full.head_dim}, float32 "
+          f"tiles; CUDA events): forward {fwd_ms:.2f} ms, forward + backward "
+          f"{both_ms:.2f} ms; {want_calls // 2} layer-microbatches x "
+          f"(forward + forward + backward) = {share:.1%} of the "
+          f"{step_ms:.1f} ms step")
+    del state, batches
+    free_card()
+    lap("the profiled step and the chunked attention's share")
+
+    # gates 2 and 4-7 at 4 of the 24 layers, on one batch of 2 x 4096
+    gate_cfg = dataclasses.replace(tcfg, microbatches=1)
+    cut = dataclasses.replace(full, n_layers=TRAIN_CUT_LAYERS)
+    params, _ = train_model(cut, dev, seed)
+    batch = train_batch(cut, TRAIN_GATE_ROWS, seq, seed, 0, dev)
+    guard_gates(cut, params, batch, gate_cfg)
+    free_card()
+    lap("gate 2")
+    both = {}
+    for route, chunked in (("chunked", True), ("full", False)):
+        if not chunked:
+            attention.takes_chunked = lambda *a, **k: False
+        try:
+            calls0 = attend_chunked.calls
+            _, m = train_step(make_train_state(params, gate_cfg), batch,
+                              cfg=cut, tcfg=gate_cfg)
+            both[route] = (float(m["loss"]), float(m["grad_norm"]),
+                           attend_chunked.calls - calls0)
+        finally:
+            attention.takes_chunked = TAKES_CHUNKED
+        free_card()
+    errs = [abs(both["chunked"][i] - both["full"][i]) / abs(both["full"][i])
+            for i in range(2)]
+    print(f"training gate 6: chunked against full-matrix attention at "
+          f"{TRAIN_CUT_LAYERS} of {full.n_layers} layers: loss "
+          f"{both['chunked'][0]} vs {both['full'][0]}, grad norm "
+          f"{both['chunked'][1]} vs {both['full'][1]}; relative "
+          f"{errs[0]:.2e}, {errs[1]:.2e} (tolerances {CHUNKED_TOL}); chunked "
+          f"calls {both['chunked'][2]} and {both['full'][2]}")
+    if errs[0] > CHUNKED_TOL[0] or errs[1] > CHUNKED_TOL[1] \
+            or both["chunked"][2] == 0 or both["full"][2] != 0:
+        fail("training gate 6: the chunked path disagrees with the full "
+             "matrix, or a route was not taken")
+    lap("gate 6")
+
+    # gates 4 and 5 on one batch of 2 x 4096
+    state = make_train_state(params, gate_cfg)
+    fit = []
+    for _ in range(OVERFIT_STEPS):
+        state, m = train_step(state, batch, cfg=cut, tcfg=gate_cfg)
+        fit.append(float(m["loss"]))
+    print(f"training gate 4: {OVERFIT_STEPS} steps on one batch of "
+          f"{TRAIN_GATE_ROWS} x {seq} at {TRAIN_CUT_LAYERS} of "
+          f"{full.n_layers} layers: losses {fit}")
+    if not fit[-1] < fit[0]:
+        fail("training gate 4: the loss did not fall on a repeated batch")
+    del state
+    free_card()
+    split = {}
+    for k in (1, 2):
+        _, m = train_step(make_train_state(params, gate_cfg), batch,
+                          cfg=cut, tcfg=dataclasses.replace(
+                              gate_cfg, microbatches=k))
+        split[k] = (float(m["loss"]), float(m["grad_norm"]))
+        free_card()
+    errs = [abs(split[2][i] - split[1][i]) / abs(split[1][i])
+            for i in range(2)]
+    print(f"training gate 5: microbatches 2 against 1 at {TRAIN_CUT_LAYERS}"
+          f" layers: loss {split[2][0]} "
+          f"vs {split[1][0]}, grad norm {split[2][1]} vs {split[1][1]}; "
+          f"relative {errs[0]:.2e}, {errs[1]:.2e} (tolerances "
+          f"{MICROBATCH_TOL})")
+    if errs[0] > MICROBATCH_TOL[0] or errs[1] > MICROBATCH_TOL[1]:
+        fail("training gate 5: microbatching changed the step")
+    lap("gates 4 and 5")
+
+    # gate 7: resume from a checkpoint
+    data = SyntheticLM(DataConfig(vocab_size=cut.vocab_size, seq_len=seq,
+                                  global_batch=TRAIN_GATE_ROWS, seed=seed))
+    state = make_train_state(params, gate_cfg)
+    del params
+    it = iter(data)
+    for _ in range(RESUME_AT):
+        state, _ = train_step(state, to_device(next(it), dev), cfg=cut,
+                              tcfg=gate_cfg)
+    ckpt = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(str(ckpt), keep=1)
+    mgr.save(RESUME_AT, state, metadata={"arch": cut.name})
+    save_s = time.perf_counter() - t0
+    straight = []
+    for _ in range(RESUME_STEPS):
+        state, m = train_step(state, to_device(next(it), dev), cfg=cut,
+                              tcfg=gate_cfg)
+        straight.append(float(m["loss"]))
+    t0 = time.perf_counter()
+    state, manifest = mgr.restore(state)
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    data.seek(manifest["step"])
+    it = iter(data)
+    resumed = []
+    for _ in range(RESUME_STEPS):
+        state, m = train_step(state, to_device(next(it), dev), cfg=cut,
+                              tcfg=gate_cfg)
+        resumed.append(float(m["loss"]))
+    err = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight))
+    print(f"training gate 7 at {TRAIN_CUT_LAYERS} layers: checkpoint at step "
+          f"{RESUME_AT} ({save_s:.1f} s"
+          f" to save, {restore_s:.1f} s to restore), then {RESUME_STEPS} "
+          f"steps: straight {straight}, resumed {resumed}; relative "
+          f"{err:.2e} (tolerance {RESUME_TOL}); bitwise equal: "
+          f"{resumed == straight}")
+    if err > RESUME_TOL:
+        fail("training gate 7: the resumed steps differ")
+    del state
+    free_card()
+    lap("gate 7")
+    return {"step_ms": step_ms, "tok_per_s": tok_s, "peak_gb": peak_gb,
+            "mfu": mfu, "chunked_share": share, "chunked_calls":
+            chunked_calls, "seconds": time.perf_counter() - t_start}
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0,
@@ -2863,6 +3297,14 @@ def main() -> None:
     cases9 = family_kernel_cases(dev, args.seed, bw, peak_bf16, card)
     new_s["model families"] = time.perf_counter() - t0
     print(f"model families phase: {new_s['model families']:.1f} s")
+
+    # ---- 10. training ---------------------------------------------------
+    t0 = time.perf_counter()
+    free_card()
+    trained = train_phase(dev, args.seed, card, peak_bf16)
+    new_s["training"] = time.perf_counter() - t0
+    print(f"training {TRAIN_ARCH}: {json.dumps(trained)}")
+    print(f"training phase: {new_s['training']:.1f} s")
     for arch, fam in families.items():
         by_path[arch] = fam["launches"]
         summary = {k: fam[k] for k in ("cut", "param_gb", "launches",

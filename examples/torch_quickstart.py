@@ -14,9 +14,9 @@ The port's counterpart of ``examples/quickstart.py``:
    ``~/.cache/repro_torch/tuning.json``).
 3. Time both backends, the kernel at its tuned point, and compute the
    performance-portability metric Phi-bar (Eq. 4, the paper's C3).
-4. Generate a few tokens with the granite-3-8b smoke config.  The
-   reference's step 4 also takes a train step; the port's training waits
-   for its port (ROADMAP item 11).
+4. Take one train step on the granite-3-8b smoke config (float32 masters,
+   AdamW, remat, the plain ``torch`` attention), then generate a few
+   tokens from the updated masters, as the reference's step 4 does.
 
 On the CPU (``--device cpu``) the hand-written backend cannot run: steps
 1-3 say why (the availability probe's reason) and time only the oracle,
@@ -34,8 +34,11 @@ import repro_torch.kernels  # noqa: F401  (registers the kernels)
 from repro_torch.configs import get_config
 from repro_torch.core import Efficiency, get_kernel, phi_bar
 from repro_torch.core.tuning import TuningCache, tune_registered
+from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
 from repro_torch.models import transformer as T
 from repro_torch.training.serve_step import generate
+from repro_torch.training.train_step import (TrainConfig, make_train_state,
+                                             train_step)
 
 
 def science_kernels(device: torch.device, cache: TuningCache) -> None:
@@ -79,12 +82,20 @@ def science_kernels(device: torch.device, cache: TuningCache) -> None:
 
 
 def lm_steps(device: torch.device) -> None:
-    print("\n== 4. LM: generation on the granite-3-8b smoke config ==")
-    print("(the reference's train step waits for the port of training, "
-          "ROADMAP item 11)")
+    print("\n== 4. LM: a train step + generation on the granite-3-8b smoke "
+          "config ==")
     cfg = get_config("granite-3-8b", smoke=True)
     params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                           device)
+                           device, dtype=cfg.pdtype())
+    tcfg = TrainConfig(microbatches=2)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                   global_batch=4)).batch_at(0)
+    state, metrics = train_step(make_train_state(params, tcfg),
+                                to_device(batch, device), cfg=cfg, tcfg=tcfg)
+    print(f"train step: loss {float(metrics['loss']):.4f}, grad norm "
+          f"{float(metrics['grad_norm']):.4f}, lr {float(metrics['lr']):.2e}")
+    # generate from the float32 masters: each layer casts them at use
+    params = state["params"]
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8))).to(
         device)

@@ -43,6 +43,7 @@ from repro_torch.core import telemetry as tel
 __all__ = [
     "Backend",
     "BackendUnavailableError",
+    "no_grad_kernel",
     "TunableSpace",
     "PortableKernel",
     "KernelRegistry",
@@ -61,6 +62,27 @@ Probe = Callable[[], Optional[str]]
 
 class BackendUnavailableError(RuntimeError):
     """A backend exists in the registry but cannot run on this host."""
+
+
+def no_grad_kernel(name: str, *tensors: Any) -> None:
+    """Refuse a hand-written kernel under autograd.
+
+    The kernels write into tensors they allocate, so their outputs carry no
+    ``grad_fn``: a gradient would stop there, and nothing would say so.
+    Every hand-written entry calls this first; it raises ``RuntimeError``
+    when grad mode is on and any tensor among ``tensors`` requires grad.
+    Nothing falls back: the caller asks for the ``torch`` backend, which
+    autograd differentiates.
+    """
+    if not torch.is_grad_enabled():
+        return
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {name} kernel has no backward: it was called with a tensor "
+            f"that requires grad, and its output would carry no gradient.  "
+            f"Ask for the 'torch' backend (attn_backend='torch', "
+            f"wkv_backend='torch' or backend='torch'), or call it under "
+            f"torch.no_grad()")
 
 
 def _runs_anywhere() -> Optional[str]:

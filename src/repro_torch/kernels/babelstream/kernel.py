@@ -35,6 +35,7 @@ parameter annotations stay objects, as Triton expects.)
 
 import torch
 
+from repro_torch.core.portable import no_grad_kernel
 from repro_torch.core.telemetry import cudamon
 from repro_torch.kernels.babelstream import ref
 
@@ -136,6 +137,7 @@ def _stream(op: str, x: torch.Tensor, y: torch.Tensor, scalar: float,
 def copy(a: torch.Tensor, *, block: int = BLOCK,
          num_warps: int = NUM_WARPS) -> torch.Tensor:
     """c = a"""
+    no_grad_kernel("babelstream.copy", a)
     if not _uses_kernel("babelstream.copy", a):
         return ref.copy(a)
     out = _stream("copy", a, a, 0.0, block, num_warps)
@@ -146,6 +148,7 @@ def copy(a: torch.Tensor, *, block: int = BLOCK,
 def mul(c: torch.Tensor, scalar: float = ref.START_SCALAR, *,
         block: int = BLOCK, num_warps: int = NUM_WARPS) -> torch.Tensor:
     """b = scalar * c"""
+    no_grad_kernel("babelstream.mul", c)
     if not _uses_kernel("babelstream.mul", c):
         return ref.mul(c, scalar)
     out = _stream("mul", c, c, scalar, block, num_warps)
@@ -156,6 +159,7 @@ def mul(c: torch.Tensor, scalar: float = ref.START_SCALAR, *,
 def add(a: torch.Tensor, b: torch.Tensor, *, block: int = BLOCK,
         num_warps: int = NUM_WARPS) -> torch.Tensor:
     """c = a + b"""
+    no_grad_kernel("babelstream.add", a, b)
     if not _uses_kernel("babelstream.add", a, b):
         return ref.add(a, b)
     out = _stream("add", a, b, 0.0, block, num_warps)
@@ -166,6 +170,7 @@ def add(a: torch.Tensor, b: torch.Tensor, *, block: int = BLOCK,
 def triad(b: torch.Tensor, c: torch.Tensor, scalar: float = ref.START_SCALAR,
           *, block: int = BLOCK, num_warps: int = NUM_WARPS) -> torch.Tensor:
     """a = b + scalar * c"""
+    no_grad_kernel("babelstream.triad", b, c)
     if not _uses_kernel("babelstream.triad", b, c):
         return ref.triad(b, c, scalar)
     out = _stream("triad", b, c, scalar, block, num_warps)
@@ -177,6 +182,7 @@ def dot(a: torch.Tensor, b: torch.Tensor, *, block: int = BLOCK,
         num_warps: int = NUM_WARPS) -> torch.Tensor:
     """sum_i a[i]*b[i] as a 0-d tensor of the input dtype, accumulated in
     ``ref.accumulator_dtype`` (two launches: partials, then their sum)."""
+    no_grad_kernel("babelstream.dot", a, b)
     if not _uses_kernel("babelstream.dot", a, b):
         return ref.dot(a, b)
     _, kernel = _kernels()

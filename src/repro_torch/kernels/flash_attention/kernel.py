@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from repro_torch import _build
+from repro_torch.core.portable import no_grad_kernel
 from repro_torch.kernels.flash_attention import ref
 
 #: declared tunables of the ``cuda`` backends (ops.py registers them): the
@@ -150,6 +151,7 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the tensor-core kernel, which copies rows 16 bytes at a time: q, k and
     v need 16-byte aligned bases and row, head and batch strides.
     """
+    no_grad_kernel("attention.flash", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash takes q (B, H, S, Dh) and k, v (B, Kv, T, "
                          f"Dh), got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -246,6 +248,7 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (row, kv head) combines the chunks' partials in order, found through
     the arrival counters of ``_arrivals``.
     """
+    no_grad_kernel("attention.decode", q, k, v)
     if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"decode takes q (B, 1, H, Dh) and k, v (B, T, Kv, "
                          f"Dh), got {tuple(q.shape)}, {tuple(k.shape)}, "

@@ -4,9 +4,10 @@
 attend_xla`` (the registry oracle of both attention kernels there):
 position-masked GQA attention with float32 logits, a ``-1e30`` fill for
 refused keys, and the probabilities rounded to v's dtype before P.V, as
-``_gqa_combine`` does.  The reference's chunked branch for long sequences
-(``models/chunked_attention.py``) only saves memory in the oracle; it is
-not ported (ROADMAP).
+``_gqa_combine`` does.  It is the kernels' plain version at every length:
+the reference's chunked branch for long sequences is the model's
+(``repro_torch/models/chunked_attention.py``, which ``models/attention.py``
+dispatches to on its ``torch`` route), not the kernels' oracle.
 
 Layouts, as the reference's ``kernels/flash_attention/ref.py``:
   * ``flash_ref`` (prefill): q (B, H, S, Dh), k/v (B, Kv, T, Dh); positions

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch import _build
+from repro_torch.core.portable import no_grad_kernel
 from repro_torch.kernels.hartree_fock import ref
 
 #: the declared tunable of the ``cuda`` backend (ops.py registers it): the
@@ -193,6 +194,7 @@ def twoel(positions4: torch.Tensor, density: torch.Tensor, basis: ref.Basis,
     On CUDA tensors one build of the slabs of ``slab_plan(N)``: a single
     slab up to N = 215, past it the partial builds summed in order, so
     repeats still give the same bits."""
+    no_grad_kernel("hartree_fock.twoel", positions4, density)
     n = positions4.shape[0]
     if positions4.device.type == "cpu":
         _check(positions4, density, basis, 0, n)
@@ -213,6 +215,7 @@ def twoel_slab(positions4: torch.Tensor, density: torch.Tensor,
     Summing the slabs of a disjoint cover of ``[0, N)`` gives ``twoel``'s
     result up to the order of summation.
     """
+    no_grad_kernel("hartree_fock.twoel_slab", positions4, density)
     l0, nl = int(l0), int(nl)
     if positions4.device.type == "cpu":
         _check(positions4, density, basis, l0, nl)

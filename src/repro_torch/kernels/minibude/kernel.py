@@ -23,6 +23,7 @@ import functools
 import torch
 
 from repro_torch import _build
+from repro_torch.core.portable import no_grad_kernel
 from repro_torch.kernels.minibude import ref
 
 #: declared tunables of the ``cuda`` backend (ops.py registers them): poses
@@ -78,6 +79,7 @@ def fasten(protein_pos: torch.Tensor, protein_par: torch.Tensor,
            split: int = SPLIT) -> torch.Tensor:
     """BUDE energy of every pose: (6, P) poses -> (P,) energies."""
     deck = (protein_pos, protein_par, ligand_pos, ligand_par, poses)
+    no_grad_kernel("minibude.fasten", *deck)
     natpro, natlig = protein_pos.shape[0], ligand_pos.shape[0]
     shapes = [tuple(t.shape) for t in deck]
     if (any(t.dim() != 2 for t in deck)

@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import _build
+from repro_torch.core.portable import no_grad_kernel
 from repro_torch.kernels.rwkv6 import ref
 
 #: declared tunable of the ``cuda`` backend (ops.py registers it): the
@@ -99,6 +100,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is free.  The final state is written into ``state`` in place (a new
     tensor when ``state`` is None) and returned.
     """
+    no_grad_kernel("rwkv6.wkv", r, k, v, w_logdecay, u, state)
     _check(r, k, v, w_logdecay, u, state)
     if chunk not in CHUNK_GRID:
         raise ValueError(f"bad chunk={chunk}: one of {CHUNK_GRID}")

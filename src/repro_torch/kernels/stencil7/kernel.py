@@ -20,6 +20,7 @@ import functools
 import torch
 
 from repro_torch import _build
+from repro_torch.core.portable import no_grad_kernel
 from repro_torch.kernels.stencil7 import ref
 
 #: declared tunables of the ``cuda`` backend (ops.py registers them)
@@ -51,6 +52,7 @@ def laplacian(u: torch.Tensor, invhx2: float = 1.0, invhy2: float = 1.0,
               block_x: int = BLOCK_X, block_y: int = BLOCK_Y,
               zchunk: int = ZCHUNK) -> torch.Tensor:
     """Seven-point Laplacian of a (nz, ny, nx) volume, 0 on the boundary."""
+    no_grad_kernel("stencil7", u)
     if u.dim() != 3 or min(u.shape) < 3:
         raise ValueError(f"stencil7 takes a (nz, ny, nx) volume with every "
                          f"extent >= 3, got shape {tuple(u.shape)}")

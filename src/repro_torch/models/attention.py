@@ -7,6 +7,13 @@ path.  ``attend`` routes single-query causal calls to ``attention.decode``
 and prefill-shaped calls to ``attention.flash`` on the backend that
 ``resolve_attention_backend`` picks.
 
+On the ``torch`` route, long sequences take the reference's chunked path
+(``models/chunked_attention.py``) under the reference's own condition
+(``CHUNKED_THRESHOLD``): it is the training path, differentiable by
+autograd.  The hand-written kernels have no backward: called with a tensor
+that requires grad, in grad mode, they raise (``core/portable.py::
+no_grad_kernel``), so training asks for ``torch``.
+
 Two deliberate differences from the reference:
 
   * no fallback.  The reference falls back to XLA when a requested backend
@@ -53,12 +60,25 @@ from repro_torch.core import tuning
 from repro_torch.core.portable import (BackendUnavailableError,
                                        PortableKernel, get_kernel)
 from repro_torch.kernels.flash_attention.ref import attend_torch
+from repro_torch.models.chunked_attention import attend_chunked
 from repro_torch.models.common import Params, apply_rope, dense_init
 
 ATTN_BACKEND_ENV = "REPRO_ATTN_BACKEND"
 
 #: dispatcher kind -> registry kernel name
 ATTN_KERNELS = {"prefill": "attention.flash", "decode": "attention.decode"}
+
+#: the ``torch`` route takes the chunked path from S, T >= this (with
+#: S % 512 == 0 and T % 1024 == 0), as the reference's ``attend_xla`` does
+CHUNKED_THRESHOLD = 2048
+
+
+def takes_chunked(s: int, t: int, k_index_aligned: bool = True) -> bool:
+    """Whether the ``torch`` route runs S queries against T keys through
+    ``attend_chunked``: the reference's condition, and keys whose slots
+    follow their positions (the chunked path skips key chunks by index)."""
+    return (k_index_aligned and s >= CHUNKED_THRESHOLD
+            and t >= CHUNKED_THRESHOLD and s % 512 == 0 and t % 1024 == 0)
 
 
 def attention_init(gen: torch.Generator, d_model: int, n_heads: int,
@@ -214,7 +234,8 @@ def kernel_args(kind: str, q: torch.Tensor, k: torch.Tensor,
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_pos: torch.Tensor, k_pos: torch.Tensor, *, n_kv_heads: int,
-           causal: bool, window: int = 0, backend: Optional[str] = None,
+           causal: bool, window: int = 0, bf16_intermediates: bool = False,
+           backend: Optional[str] = None,
            k_index_aligned: bool = True) -> torch.Tensor:
     """Position-masked GQA attention through the kernel registry.
 
@@ -224,14 +245,20 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``attention.decode``, the rest to ``attention.flash`` (on transposed
     views: no copy).  ``k_index_aligned=False`` says the keys' slots do not
     follow their positions (a wrapped ring), so the prefill kernel may not
-    skip blocks by index.
+    skip blocks by index, and the ``torch`` route does not take the chunked
+    path.  ``bf16_intermediates`` reaches the chunked path only.
     """
-    s = q.shape[1]
+    s, t = q.shape[1], k.shape[1]
     kind = "decode" if (causal and s == 1) else "prefill"
     name = resolve_attention_backend(kind, backend, q.device)
     kernel = get_kernel(ATTN_KERNELS[kind])
     if name == kernel.oracle:
         _log(kind, backend=name, kernel=kernel.name, tuning="n/a", params={})
+        if takes_chunked(s, t, k_index_aligned):
+            return attend_chunked(q, k, v, q_pos, k_pos,
+                                  n_kv_heads=n_kv_heads, causal=causal,
+                                  window=window,
+                                  bf16_intermediates=bf16_intermediates)
         return attend_torch(q, k, v, q_pos, k_pos, n_kv_heads=n_kv_heads,
                             causal=causal, window=window)
     args, kwargs = kernel_args(kind, q, k, v, q_pos, k_pos, causal=causal,
@@ -297,6 +324,7 @@ def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
                     memory_kv: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None,
                     memory_pos: Optional[torch.Tensor] = None,
+                    bf16_intermediates: bool = False,
                     backend: Optional[str] = None,
                     ) -> Tuple[torch.Tensor,
                                Optional[Dict[str, torch.Tensor]]]:
@@ -308,7 +336,8 @@ def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
     * cross-attention: ``memory_kv`` = (k, v) from ``cross_kv`` over the
       encoder's output, at positions ``memory_pos`` (B, T); ``causal``
       must be False, and the cache is neither read nor written.
-    ``backend`` selects the registry attention backend (see ``attend``).
+    ``backend`` selects the registry attention backend and
+    ``bf16_intermediates`` the chunked path's tiles (see ``attend``).
     Returns (output, cache).
     """
     b, s, _ = x.shape
@@ -331,7 +360,8 @@ def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int,
             # length wraps: slot index no longer tracks position
             k_index_aligned = s == 1 or k.shape[1] >= s
     out = attend(q, k, v, positions, k_pos, n_kv_heads=n_kv_heads,
-                 causal=causal, window=window, backend=backend,
+                 causal=causal, window=window,
+                 bf16_intermediates=bf16_intermediates, backend=backend,
                  k_index_aligned=k_index_aligned)
     return out.reshape(b, s, n_heads * head_dim) @ p["wo"], cache
 

@@ -119,6 +119,21 @@ def apply_mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     return h @ p["w_down"]
 
 
+def cast_tree(tree: Any, dtype: torch.dtype) -> Any:
+    """Every floating-point tensor of a tree of dicts and lists cast to
+    ``dtype`` (others as they are; a tuple comes back as a list).  The cast
+    is differentiable, and ``Tensor.to`` returns a tensor already in
+    ``dtype`` itself, so on parameters held in the compute dtype it is the
+    identity: no copy."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [cast_tree(v, dtype) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
 def count_params(tree) -> int:
     if isinstance(tree, torch.Tensor):
         return tree.numel()

@@ -13,8 +13,12 @@ Numerics follow the reference: the router's logits in the compute dtype,
 then float32 softmax; ``top_k`` breaks ties towards the lower expert index,
 as ``jax.lax.top_k`` does (a stable descending sort); slot-major priority
 within an expert's capacity; the tanh GELU, ``jax.nn.gelu``'s default.
-The reference's training levers (``stopgrad_dispatch``, the sharding
-``constraint``) have no counterpart: the port runs inference only.
+It trains as it serves: autograd differentiates the same einsums.
+``stopgrad_dispatch`` detaches the one-hot masks, as the reference's lever
+does (``cfg.moe_stopgrad_dispatch``): they are built from integer
+comparisons, so no gradient reaches them either way, and the router learns
+through the gate values in ``combine``.  The reference's sharding
+``constraint`` waits for the port of ``distributed/``.
 """
 
 from __future__ import annotations
@@ -109,10 +113,11 @@ def top_k(probs: torch.Tensor, k: int
 
 
 def route(router: torch.Tensor, xt: torch.Tensor, *, n_experts: int,
-          k: int, capacity_factor: float
+          k: int, capacity_factor: float, stopgrad_dispatch: bool = False
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """xt (G, gs, D) -> (dispatch, combine (G, gs, E, C) in xt's dtype, the
-    Switch aux load-balance loss, a float32 scalar)."""
+    Switch aux load-balance loss, a float32 scalar).  ``stopgrad_dispatch``
+    detaches the one-hot masks."""
     g, gs, _ = xt.shape
     dt, dev = xt.dtype, xt.device
     probs = torch.softmax((xt @ router).float(), dim=-1)     # (G, gs, E)
@@ -133,6 +138,8 @@ def route(router: torch.Tensor, xt: torch.Tensor, *, n_experts: int,
     # a dropped slot's row is all zero (the reference's out-of-range one_hot)
     slot = torch.where(keep, pos_in_expert, cap)
     poh = (slot[..., None] == torch.arange(cap, device=dev)).to(dt)
+    if stopgrad_dispatch:
+        kept_mask, poh = kept_mask.detach(), poh.detach()
     # contract k without materialising (G, gs, k, E, C)
     dispatch = torch.einsum("gtke,gtkc->gtec", kept_mask, poh)
     combine = torch.einsum("gtke,gtkc->gtec",
@@ -148,7 +155,7 @@ def route(router: torch.Tensor, xt: torch.Tensor, *, n_experts: int,
 
 def moe_apply(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
               mlp_kind: str, capacity_factor: float = 1.25,
-              group_size: int = GROUP_SIZE
+              group_size: int = GROUP_SIZE, stopgrad_dispatch: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), aux load-balance loss (scalar)).
 
@@ -156,13 +163,15 @@ def moe_apply(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     dispatch/combine one-hot contractions are per group, so dispatch memory
     is O(T E C_g) with C_g = ceil(group k / E cf), linear in tokens.
     Overflow tokens beyond capacity drop that expert's contribution.
+    ``stopgrad_dispatch`` detaches the routing one-hots (``route``).
     """
     b, s, d = x.shape
     t = b * s
     gs = routing_group(t, group_size)
     xt = x.reshape(t // gs, gs, d)
     dispatch, combine, aux = route(p["router"], xt, n_experts=n_experts,
-                                   k=top_k, capacity_factor=capacity_factor)
+                                   k=top_k, capacity_factor=capacity_factor,
+                                   stopgrad_dispatch=stopgrad_dispatch)
     x_e = torch.einsum("gtec,gtd->gecd", dispatch, xt)       # (G,E,C,D)
     y_e = bank_ffn(p["experts"], x_e, mlp_kind)
     out = torch.einsum("gtec,gecd->gtd", combine, y_e)

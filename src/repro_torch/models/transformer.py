@@ -11,10 +11,18 @@ segment's leaves stacked on a leading layer axis — so a slot of the
 serving engine is one row of a few tensors, and each layer writes its view
 of them in place.
 
-Weights are held once in the compute dtype (the reference casts every layer
-to it at each call, ``cast_tree``, which gives the same values); the final
-norms' scales (the decoder's and the encoder's) stay in the parameter
-dtype, as the reference uses them uncast.
+Each layer's parameters are cast to the compute dtype where the layer
+uses them (``cast_tree``), the embedding rows after the gather and the
+unembedding at the logits, as the reference casts them; the final norms'
+scales (the decoder's and the encoder's) are used uncast, as there.  So a
+trainer keeps float32 masters (``init_params(..., dtype=torch.float32)``,
+``params_from_jax(..., dtype=cfg.pdtype())``) and autograd carries the
+gradients through the casts to them.  Serving holds its weights in the
+compute dtype (the default), and there every cast is the identity: ``.to``
+returns the tensor itself, so no copy is made and a captured CUDA graph
+reads the weights it always read.  ``remat=True`` recomputes each layer in
+the backward pass (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` does.
 
 A layer is one of:
 
@@ -45,6 +53,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -52,8 +61,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (Params, apply_mlp, apply_norm,
-                                       dense_init, embed_init, mlp_init,
-                                       norm_init)
+                                       cast_tree, dense_init, embed_init,
+                                       mlp_init, norm_init)
 
 
 # --------------------------------------------------------------------------
@@ -100,9 +109,10 @@ ENCODER_KIND = {"moe": False, "window": 0, "cross": False, "rwkv": False,
 
 
 def layer_init(gen: torch.Generator, cfg: ModelConfig, idx: int, device, *,
-               encoder: bool = False) -> Params:
+               encoder: bool = False,
+               dtype: Optional[torch.dtype] = None) -> Params:
     kind = ENCODER_KIND if encoder else layer_kind(cfg, idx)
-    d, dt = cfg.d_model, cfg.cdtype()
+    d, dt = cfg.d_model, cfg.cdtype() if dtype is None else dtype
     if kind["rwkv"]:
         # rwkv keeps its pre-norms with the block, as the reference's
         # init_params adds them
@@ -183,6 +193,7 @@ def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         rope_theta=cfg.rope_theta, causal=kind["causal"],
         window=kind["window"],
         cache=None if cache is None else cache["self"],
+        bf16_intermediates=cfg.attn_bf16_intermediates,
         backend=cfg.attn_backend)
     if kind["ssm"]:
         s_out, (ssm_state, conv_state) = ssm_mod.ssm_apply(
@@ -211,7 +222,8 @@ def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if kind["moe"]:
         m_out, aux = moe_mod.moe_apply(
             p["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
-            mlp_kind=cfg.mlp, capacity_factor=cfg.moe_capacity_factor)
+            mlp_kind=cfg.mlp, capacity_factor=cfg.moe_capacity_factor,
+            stopgrad_dispatch=cfg.moe_stopgrad_dispatch)
         return x + m_out, aux
     return x + apply_mlp(p["mlp"], h, cfg.mlp), None
 
@@ -220,30 +232,34 @@ def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
 # full model
 # --------------------------------------------------------------------------
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> Params:
+                device, dtype: Optional[torch.dtype] = None) -> Params:
     """Random weights drawn from ``generator`` on ``device``, in the
     compute dtype (tables padded to ``cfg.padded_vocab``); the final norms'
-    scales in the parameter dtype."""
-    dt = cfg.cdtype()
+    scales in the parameter dtype.  ``dtype`` puts every leaf in that
+    dtype instead: ``cfg.pdtype()`` gives a trainer's float32 masters."""
+    dt = cfg.cdtype() if dtype is None else dtype
+    ndt = cfg.pdtype() if dtype is None else dtype
     params: Params = {
         "embed": embed_init(generator, cfg.padded_vocab, cfg.d_model, dt,
                             device),
-        "final_norm": norm_init(cfg.d_model, cfg.norm, cfg.pdtype(), device)}
+        "final_norm": norm_init(cfg.d_model, cfg.norm, ndt, device)}
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(generator, cfg.d_model,
                                        cfg.padded_vocab, dt, device)
     plan = layer_plan(cfg)
-    params["eager"] = {str(i): layer_init(generator, cfg, i, device)
+    params["eager"] = {str(i): layer_init(generator, cfg, i, device,
+                                          dtype=dtype)
                        for kind, i in plan if kind == "eager"}
     params["segments"] = [
-        [layer_init(generator, cfg, i, device) for i in range(lo, hi)]
+        [layer_init(generator, cfg, i, device, dtype=dtype)
+         for i in range(lo, hi)]
         for kind, (lo, hi) in ((k, a) for k, a in plan if k == "scan")]
     if cfg.is_encoder_decoder:
         params["encoder"] = {
-            "layers": [layer_init(generator, cfg, i, device, encoder=True)
+            "layers": [layer_init(generator, cfg, i, device, encoder=True,
+                                  dtype=dtype)
                        for i in range(cfg.n_encoder_layers)],
-            "final_norm": norm_init(cfg.d_model, cfg.norm, cfg.pdtype(),
-                                    device)}
+            "final_norm": norm_init(cfg.d_model, cfg.norm, ndt, device)}
     return params
 
 
@@ -263,8 +279,8 @@ def _first_leaf(tree: Any) -> Any:
     return tree
 
 
-def params_from_jax(tree: Params, cfg: ModelConfig,
-                    device="cuda") -> Params:
+def params_from_jax(tree: Params, cfg: ModelConfig, device="cuda",
+                    dtype: Optional[torch.dtype] = None) -> Params:
     """The reference's ``init_params`` pytree (numpy arrays, or anything
     ``numpy.asarray`` takes) -> the port's parameters on ``device`` (the
     card unless the caller asks for another).
@@ -272,7 +288,9 @@ def params_from_jax(tree: Params, cfg: ModelConfig,
     Stacked ``segments`` leaves (and the encoder's stacked layers) are split
     into per-layer dicts; every array is cast to the compute dtype, except
     the final norms' scales, which keep the parameter dtype, so both
-    packages compute the same thing.
+    packages compute the same thing.  ``dtype`` puts every leaf in that
+    dtype instead: ``dtype=cfg.pdtype()`` carries the reference's float32
+    parameters across as a trainer's float32 masters.
     """
     def leaf(dtype):
         def conv(a):
@@ -286,10 +304,10 @@ def params_from_jax(tree: Params, cfg: ModelConfig,
         return [tree_map(lambda t, i=i: t[i].clone(), stacked)
                 for i in range(len(_first_leaf(stacked)))]
 
-    cdt = cfg.cdtype()
+    cdt = cfg.cdtype() if dtype is None else dtype
+    ndt = cfg.pdtype() if dtype is None else dtype
     out: Params = {"embed": leaf(cdt)(tree["embed"]),
-                   "final_norm": tree_map(leaf(cfg.pdtype()),
-                                          tree["final_norm"])}
+                   "final_norm": tree_map(leaf(ndt), tree["final_norm"])}
     if "unembed" in tree:
         out["unembed"] = leaf(cdt)(tree["unembed"])
     out["eager"] = {k: tree_map(leaf(cdt), v)
@@ -298,7 +316,7 @@ def params_from_jax(tree: Params, cfg: ModelConfig,
     if "encoder" in tree:
         enc = tree["encoder"]
         out["encoder"] = {"layers": unstack(enc["layers"]),
-                          "final_norm": tree_map(leaf(cfg.pdtype()),
+                          "final_norm": tree_map(leaf(ndt),
                                                  enc["final_norm"])}
     return out
 
@@ -324,14 +342,24 @@ def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+def _layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+           kind: Dict[str, Any], **kwargs: Any
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``layer_apply`` on the layer's parameters cast to the compute
+    dtype (inside a checkpointed layer, so the cast copies are recomputed
+    in the backward pass, not kept)."""
+    return layer_apply(cast_tree(lp, cfg.cdtype()), x, cfg, kind, **kwargs)
+
+
 def _run_layers(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, caches: Optional[Params] = None,
                 memory: Optional[torch.Tensor] = None,
                 memory_pos: Optional[torch.Tensor] = None,
-                wkv_backend: Optional[str] = None
+                wkv_backend: Optional[str] = None, remat: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Execute the layer plan; each layer writes its cache view in place.
-    Returns (x, the sum of the MoE layers' aux losses, float32)."""
+    ``remat`` recomputes each layer in the backward pass.  Returns (x, the
+    sum of the MoE layers' aux losses, float32)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     seg_i = 0
     for tag, arg in layer_plan(cfg):
@@ -346,10 +374,14 @@ def _run_layers(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 for i, lp in enumerate(params["segments"][seg_i])]
             seg_i += 1
         for idx, lp, c in layers:       # homogeneous within a segment
-            x, a = layer_apply(lp, x, cfg, layer_kind(cfg, idx),
-                               positions=positions, cache=c, memory=memory,
-                               memory_pos=memory_pos,
-                               wkv_backend=wkv_backend)
+            kwargs = dict(positions=positions, cache=c, memory=memory,
+                          memory_pos=memory_pos, wkv_backend=wkv_backend)
+            if remat:
+                x, a = torch.utils.checkpoint.checkpoint(
+                    _layer, lp, x, cfg, layer_kind(cfg, idx),
+                    use_reentrant=False, **kwargs)
+            else:
+                x, a = _layer(lp, x, cfg, layer_kind(cfg, idx), **kwargs)
             if a is not None:
                 aux = aux + a
     return x, aux
@@ -366,7 +398,7 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor
     x = frames.to(cdt) + _sinusoidal(pos, cfg.d_model).to(cdt)
     enc = params["encoder"]
     for lp in enc["layers"]:
-        x, _ = layer_apply(lp, x, cfg, ENCODER_KIND, positions=pos)
+        x, _ = _layer(lp, x, cfg, ENCODER_KIND, positions=pos)
     return apply_norm(enc["final_norm"], x, cfg.norm,
                       bf16_mul=cfg.norm_bf16_mul), pos
 
@@ -379,7 +411,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             memory: Optional[torch.Tensor] = None, last_only: bool = False,
             lengths: Optional[torch.Tensor] = None,
             attn_backend: Optional[str] = None,
-            wkv_backend: Optional[str] = None
+            wkv_backend: Optional[str] = None, remat: bool = False
             ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V), caches, aux).
 
@@ -394,8 +426,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     -1, see ``leftpad_positions``), ignored when ``positions`` are given.
     ``attn_backend`` overrides ``cfg.attn_backend`` for this call,
     ``wkv_backend`` picks the RWKV layers' WKV
-    (``models/rwkv.py::resolve_wkv_backend``).  Padded vocab columns get
-    -1e9.  ``aux`` is the MoE layers' summed load-balance loss (float32;
+    (``models/rwkv.py::resolve_wkv_backend``).  ``remat`` recomputes each
+    decoder layer in the backward pass (training).  Padded vocab columns
+    get -1e9.  ``aux`` is the MoE layers' summed load-balance loss (float32;
     0 without MoE layers).
     """
     if attn_backend is not None:
@@ -407,9 +440,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         else:
             positions = torch.arange(s, dtype=torch.int32,
                                      device=tokens.device).expand(b, s)
-    x = params["embed"][tokens]            # a new tensor: added to in place
+    cdt = cfg.cdtype()
+    # the rows cast after the gather: the same values as the reference's
+    # cast of the whole table, and a new tensor (added to in place)
+    x = params["embed"][tokens].to(cdt)
     if patches is not None:
-        x[:, :patches.shape[1]] += patches.to(x.dtype)
+        x[:, :patches.shape[1]] += patches.to(cdt)
     if not cfg.use_rope and not cfg.rwkv:
         x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
 
@@ -430,13 +466,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     x, aux = _run_layers(params, x, cfg, positions=positions, caches=caches,
                          memory=memory, memory_pos=memory_pos,
-                         wkv_backend=wkv_backend)
+                         wkv_backend=wkv_backend, remat=remat)
     x = apply_norm(params["final_norm"], x, cfg.norm,
                    bf16_mul=cfg.norm_bf16_mul)
     if last_only:
         x = x[:, -1:]
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    logits = x @ unembed
+    logits = x @ unembed.to(cdt)
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=logits.device) \
             >= cfg.vocab_size

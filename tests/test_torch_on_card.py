@@ -42,7 +42,10 @@ from repro_torch.kernels.stencil7 import kernel as stencil_kernel
 from repro_torch.kernels.stencil7 import ref as stencil_ref
 from repro_torch.models import attention
 from repro_torch.models import rwkv as rwkv_model
-from repro_torch.models.transformer import init_params
+from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+from repro_torch.models.transformer import forward, init_params, tree_map
+from repro_torch.optim.adamw import AdamWConfig, leaves
+from repro_torch.training import train_step as TS
 from repro_torch.serving import ServingEngine
 from repro_torch.serving import portable as serving_portable
 from repro_torch.training import serve_step as SS
@@ -970,3 +973,80 @@ def test_engine_counts_one_graph_capture(cuda):
         tel.configure(os.environ.get(tel.ENV))
     assert eng.stats["decode_traces"] == 1
     assert counters[cudamon.GRAPH_CAPTURE] == 1
+
+
+# --------------------------------------------------------------------------
+# training: the guard, and a train step on the card against the CPU
+# --------------------------------------------------------------------------
+def test_hand_written_kernels_refuse_grad_on_the_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn(1, 4, 64, 64, generator=g, device=cuda)
+    kv = torch.randn(1, 2, 64, 64, generator=g, device=cuda)
+    pos = torch.arange(64, dtype=torch.int32, device=cuda)[None]
+    r = torch.randn(1, 2, 64, 64, generator=g, device=cuda)
+    calls = {
+        "attention.flash": lambda x: attn_kernel.flash(x, kv, kv),
+        "attention.decode": lambda x: attn_kernel.decode(
+            x[:, :, :1].transpose(1, 2).contiguous(), kv.transpose(1, 2),
+            kv.transpose(1, 2), pos[:, -1:], pos),
+        "rwkv6.wkv": lambda x: wkv_kernel.wkv(
+            x[:, :2], r, r, -r.abs(), torch.zeros(2, 64, device=cuda)),
+        "babelstream.triad": lambda x: stream_kernel.triad(x.flatten(),
+                                                           q.flatten()),
+        "stencil7": lambda x: stencil_kernel.laplacian(x[0]),
+    }
+    for name, call in calls.items():
+        before = {w: getattr(w, "launches") for w in (
+            attn_kernel.flash, attn_kernel.decode, wkv_kernel.wkv,
+            stream_kernel.triad, stencil_kernel.laplacian)}
+        with pytest.raises(RuntimeError, match=f"the {name} kernel has no "
+                                               f"backward"):
+            call(q.clone().requires_grad_())
+        assert all(w.launches == n for w, n in before.items())
+        with torch.no_grad():
+            call(q.clone().requires_grad_())     # no grad mode: it runs
+
+
+def test_forward_on_the_kernels_refuses_grad_requiring_params(cuda):
+    cfg = get_config("granite-3-8b", smoke=True)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda)
+    leafy = tree_map(lambda t: t.detach().requires_grad_(), params)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        forward(leafy, cfg, tokens)
+    forward(leafy, cfg, tokens, attn_backend="torch")[0].float().sum() \
+        .backward()
+    assert leafy["segments"][0][0]["attn"]["wq"].grad is not None
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One smoke train step (granite-3-8b, float32 masters, bf16 compute,
+    two microbatches, remat) from the same masters and batch on the card
+    and on the CPU: loss and metrics at (1e-2, 1e-3), the grad norm at
+    2e-2 relative, each update within 0.5 of the learning rate (AdamW
+    eps 1e-3, as tests/test_torch_train_step.py says why)."""
+    cfg = get_config("granite-3-8b", smoke=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                         dtype=cfg.pdtype())
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                   global_batch=4)).batch_at(0)
+    tcfg = TS.TrainConfig(microbatches=2,
+                          opt=AdamWConfig(warmup_steps=1, eps=1e-3))
+    out = {}
+    for dev in ("cpu", cuda):
+        on = tree_map(lambda t: t.to(dev), params)
+        state, m = TS.train_step(TS.make_train_state(on, tcfg),
+                                 to_device(batch, dev), cfg=cfg, tcfg=tcfg)
+        out[str(dev)] = (state, {k: float(v) for k, v in m.items()})
+    (s_cpu, m_cpu), (s_gpu, m_gpu) = out["cpu"], out[str(cuda)]
+    for k in m_cpu:
+        rtol = 2e-2 if k == "grad_norm" else 1e-2
+        np.testing.assert_allclose(m_gpu[k], m_cpu[k], rtol=rtol, atol=1e-3,
+                                   err_msg=k)
+    lr = m_cpu["lr"]
+    for a, b, p0 in zip(leaves(s_gpu["params"]), leaves(s_cpu["params"]),
+                        leaves(params)):
+        assert a.device.type == "cuda"
+        assert float(((a.cpu() - p0) - (b - p0)).abs().max()) <= 0.5 * lr
+
