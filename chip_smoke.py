@@ -30,7 +30,10 @@ and stablelm-1.6b at full width and depth, and pixtral-12b (vision-stub
 patches), llama4-scout-17b-a16e (MoE with patches) and deepseek-67b at
 full width, cut in depth; then training: stablelm-1.6b at full width and
 depth (random float32 masters from ``--seed``) through ``train_step`` on
-the plain ``torch`` routes, which launch no hand-written kernel.
+the plain ``torch`` routes, which launch no hand-written kernel.  After
+the science kernels' Eq. 4 (phase 5), phase 11 decomposes the same four
+workloads over 2-8 shards on the one card (``repro_torch.distributed``)
+and runs each hand-written kernel once per shard.
 
   1. build:     nvcc for every ``csrc/*.cu`` (all started together), then
                 each kernel once on its small conformance case on the card,
@@ -78,6 +81,33 @@ the plain ``torch`` routes, which launch no hand-written kernel.
                 tuned points (the slab at the tuned team), with each
                 kernel's device time as a graph and, for BabelStream, its
                 ATen call's;
+  11. domain:   (runs here, after 5) the domain decomposition on one card,
+                every shard on it (``domain.placement``): first each sharded
+                backend's conformance cell on the card (``torch_shard`` and
+                the composite, each against the oracle and its
+                ``BITWISE_TWIN``) and its comm-contract audit; then the
+                composites of the hand-written kernels at the main path's
+                shapes, each call a path of its own (its wrapper's launch
+                count set to 0 just before, read just after, with the
+                collectives it issued): the stencil through ``shard_cuda``
+                as slabs of 2, 4 and 8, pencils (2, 2), (4, 2) and (2, 4),
+                and one plane per shard (8 x 512 x 512 at 8 shards), each
+                bitwise equal to the single-device kernel, one launch a
+                shard, 2 (slab) or 4 (pencil) ppermutes; the five stream
+                ops through ``shard_triton`` at 2, 4 and 8 shards (dot
+                within ORACLE_TOL, one psum, two launches a shard);
+                miniBUDE at 2, 4 and 8 shards of bm1's poses, bitwise;
+                Hartree-Fock N = 128 at 2, 4 and 8 shards (``twoel_slab``
+                a shard, one psum), within ORACLE_TOL of the single-device
+                build, a second call bit-identical.  For each: the
+                single-device kernel's device time, the composite's by
+                ``time_call`` and as one CUDA graph (or why the capture
+                failed), for the stencil the resident step (halo exchange
+                + kernels on buffers already sharded) and the distribute
+                and collect apart, the bound (phase 4's), and the
+                composite's e_i apart from Phi-bar; then the card count,
+                and with two or more cards the slab stencil and dot with
+                their shards spread over the cards;
   6. attention: the two kernels on their float32 conformance cases (in 1),
                 a sweep over the tunables each dtype is built for, head
                 dims 64/128, ragged S/T, a window, a wrapped ring and a
@@ -223,7 +253,9 @@ the plain ``torch`` routes, which launch no hand-written kernel.
                 the 24 layers, at full width.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(each record with its tuned points, their provenance and times),
+(each record with its tuned points, their provenance and times; a science
+record's ``launches`` sums its main-path and phase-11 launches,
+``launches_by_path`` holds each, and ``sharded`` its composite's cases),
 and as its last line ``{"ok": true, "device": {...}}``.  With no CUDA
 device, or when any phase fails, it exits non-zero and prints no result.
 """
@@ -264,6 +296,7 @@ from repro_torch.core import conformance  # noqa: E402
 from repro_torch.core import telemetry as tel  # noqa: E402
 from repro_torch.core import tuning  # noqa: E402
 from repro_torch.core.telemetry import cudamon  # noqa: E402
+from repro_torch.distributed import collectives, domain  # noqa: E402
 from repro_torch.core.portable import (  # noqa: E402
     LONG_CALL_S, time_graph)
 from repro_torch.configs import get_config  # noqa: E402
@@ -301,6 +334,7 @@ from repro_torch.kernels.rwkv6 import cases as wkv_cases  # noqa: E402
 from repro_torch.kernels.rwkv6 import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
+from repro_torch.kernels.stencil7 import kernel as s7_kernel  # noqa: E402
 from repro_torch.kernels.stencil7.ref import default_coefficients  # noqa: E402
 import torch_attention_layouts as layouts  # noqa: E402
 
@@ -2884,6 +2918,324 @@ def train_phase(dev, seed: int, card: str, peak_bf16: float
             chunked_calls, "seconds": time.perf_counter() - t_start}
 
 
+# ---- slice 13: domain decomposition ----------------------------------------
+#: the stencil's decompositions at 512^3: (label, registry kwargs, shards)
+STENCIL_SHARDED = (
+    [(f"slab {s}", {"decomp": "slab", "shard_grid": (s, 1)}, s)
+     for s in (2, 4, 8)]
+    + [(f"pencil {sz}x{sy}", {"decomp": "pencil", "shard_grid": (sz, sy)},
+        sz * sy) for sz, sy in ((2, 2), (4, 2), (2, 4))])
+#: one plane per shard: an 8 x 512 x 512 volume at 8 shards, where each
+#: shard's padded block is its plane between two halo planes
+ONE_PLANE = 8
+SHARD_COUNTS = (2, 4, 8)
+#: the composites of the hand-written kernels (``shard_cuda``,
+#: ``shard_triton``) against their single-device backends
+COMPOSITE = {name: "shard_triton" for name in SLICE1[:5]}
+COMPOSITE.update({"stencil7": "shard_cuda", "minibude.fasten": "shard_cuda",
+                  "hartree_fock.twoel": "shard_cuda"})
+#: the composites' timed samples: Hartree-Fock calls take 10-30 ms
+HF_SHARD_ITERS = 3
+
+
+def sharded_path(fn: Callable[[], Any], wrapper) -> Tuple[Any, int,
+                                                           Dict[str, int]]:
+    """One composite call as a path of its own: the kernel wrapper's launch
+    count set to 0 just before and read just after, with the collectives
+    the call issued (``collectives.counting``)."""
+    wrapper.launches = 0
+    with collectives.counting() as counts:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, wrapper.launches, dict(counts)
+
+
+def contract_for(name: str, backend: str, kwargs, args) -> Dict[str, int]:
+    """The collectives the kernel's comm contract declares for a call with
+    ``kwargs`` (the first declared variant whose settings the call has)."""
+    contract = get_kernel(name).comm_contract(backend)
+    if callable(contract):
+        contract = next(expect for variant, expect in contract(*args)
+                        if variant.items() <= kwargs.items())
+    return {c: int(contract.get(c, 0)) for c in collectives.COLLECTIVES}
+
+
+def composite_ms(fn, args, kwargs, iters: int = ITERS
+                 ) -> Tuple[float, Any]:
+    """A composite call's ms by ``time_call``, and as one CUDA graph (or why
+    its capture failed)."""
+    ms = time_call(fn, *args, iters=iters, **kwargs) * 1e3
+    try:
+        graph = graph_ms(lambda: fn(*args, **kwargs), iters=iters)
+    except RuntimeError as err:
+        graph = f"capture failed: {str(err).splitlines()[0]}"
+    return ms, graph
+
+
+def fmt_graph(graph: Any) -> str:
+    return f"[{graph:.4f} as a graph]" if isinstance(graph, float) \
+        else f"[{graph}]"
+
+
+def domain_gate(label: str, launches: int, shards: int, counts, want,
+                per_shard: int = 1) -> None:
+    if launches != per_shard * shards:
+        fail(f"domain {label}: {launches} kernel launches, expected "
+             f"{per_shard} a shard for {shards} shards")
+    if counts != want:
+        fail(f"domain {label}: the call issued {counts}, its comm contract "
+             f"says {want}")
+
+
+def domain_stencil(dev, u, coeffs, measured, card: str
+                   ) -> List[Dict[str, Any]]:
+    """The stencil through ``shard_cuda`` at every decomposition: bitwise
+    against the single-device kernel at the same tile point, one launch a
+    shard, the contract's halo exchanges; the call, its resident step
+    (halo exchange + kernels on buffers already sharded) and the
+    distribute/collect apart."""
+    k = get_kernel("stencil7")
+    fn = k.backend("shard_cuda").fn
+    def local(block):
+        return s7_kernel.laplacian(block, *coeffs)
+    bound = measured["stencil7"]["bound_ms"]
+    plain_ms = measured["stencil7"]["plain_ms"]
+    u1 = u[:ONE_PLANE].clone()
+    cases = [(label, u, kw, s) for label, kw, s in STENCIL_SHARDED]
+    cases.append((f"one plane per shard {ONE_PLANE}", u1,
+                  {"decomp": "slab", "num_shards": ONE_PLANE}, ONE_PLANE))
+    out = []
+    for label, vol, kw, shards in cases:
+        if not out or vol is u1:
+            # the single-device kernel on this volume, at the same tile point
+            want = s7_kernel.laplacian(vol, *coeffs)
+            single_graph = graph_ms(lambda: s7_kernel.laplacian(vol, *coeffs))
+        got, launches, counts = sharded_path(
+            lambda: k(vol, *coeffs, backend="shard_cuda", **kw),
+            s7_kernel.laplacian)
+        if not torch.equal(got, want):
+            fail(f"domain stencil7 {label}: {int(got.ne(want).sum())} "
+                 f"cells differ from the single-device kernel")
+        domain_gate(f"stencil7 {label}", launches, shards, counts,
+                    contract_for("stencil7", "shard_cuda", kw, (vol,)))
+        ms, graph = composite_ms(fn, (vol, *coeffs), kw)
+        sz, sy = domain.stencil_grid(vol, kw.get("num_shards"), kw["decomp"],
+                                     kw.get("shard_grid"))
+        shards_ = domain.distribute_stencil(vol, sz, sy)
+        kept = domain.stencil_step(shards_, local)
+        resident = events_ms(lambda: domain.stencil_step(shards_, local))
+        try:
+            resident_graph = graph_ms(
+                lambda: domain.stencil_step(shards_, local))
+        except RuntimeError as err:
+            resident_graph = f"capture failed: {str(err).splitlines()[0]}"
+        dist = events_ms(lambda: domain.distribute_stencil(vol, sz, sy))
+        coll = events_ms(lambda: domain.collect_stencil(shards_, kept))
+        del shards_, kept
+        scale = "" if vol is u else " (8 x 512 x 512: bound not scaled)"
+        print(f"domain stencil7 {label} [shard_cuda] on {card}: bitwise "
+              f"equal, {launches} launches, {counts['ppermute']} ppermutes; "
+              f"single-device kernel {single_graph:.4f} ms (CUDA graph); "
+              f"composite {ms:.4f} ms (time_call) {fmt_graph(graph)}; "
+              f"resident step {resident:.4f} ms {fmt_graph(resident_graph)}"
+              f", distribute {dist:.4f}, collect {coll:.4f}; bound "
+              f"{bound:.4f} ms (PERF.md section 2){scale}; e_i "
+              f"{plain_ms / ms:.3f}")
+        out.append({"case": label, "launches": launches,
+                    "collectives": counts, "single_graph_ms": single_graph,
+                    "ms": ms, "graph_ms": graph, "resident_ms": resident,
+                    "resident_graph_ms": resident_graph,
+                    "distribute_ms": dist, "collect_ms": coll,
+                    "bound_ms": bound if vol is u else None,
+                    "e_i": plain_ms / ms})
+    return out
+
+
+def domain_streams(stream_args, measured, card: str
+                   ) -> Dict[str, List[Dict[str, Any]]]:
+    """The five stream ops through ``shard_triton`` at 2, 4 and 8 shards:
+    copy/mul/add/triad bitwise against the single-device kernels, dot
+    within ORACLE_TOL with one psum."""
+    out = {}
+    for op, xs in stream_args.items():
+        name = f"babelstream.{op}"
+        k = get_kernel(name)
+        wrapper = getattr(bs_kernel, op)
+        fn = k.backend("shard_triton").fn
+        want = wrapper(*xs)
+        single = graph_ms(lambda: wrapper(*xs))
+        out[name] = []
+        for s in SHARD_COUNTS:
+            got, launches, counts = sharded_path(
+                lambda: k(*xs, backend="shard_triton", num_shards=s),
+                wrapper)
+            if op == "dot":
+                err = max_abs_err(got, want, *conformance.ORACLE_TOL[name],
+                                  f"domain {name} {s} shards")
+            elif not torch.equal(got, want):
+                fail(f"domain {name} {s} shards: {int(got.ne(want).sum())} "
+                     f"elements differ from the single-device kernel")
+            else:
+                err = 0.0
+            domain_gate(f"{name} {s} shards", launches, s, counts,
+                        contract_for(name, "shard_triton", {}, xs),
+                        2 if op == "dot" else 1)
+            ms, graph = composite_ms(fn, xs, {"num_shards": s})
+            bound = measured[name]["bound_ms"]
+            plain_ms = measured[name]["plain_ms"]
+            match = f"max abs err {err:.3g}" if op == "dot" \
+                else "bitwise equal"
+            print(f"domain {name} {s} shards [shard_triton] on {card}: "
+                  f"{match}, {launches} launches, {counts['psum']} psum; "
+                  f"single-device kernel {single:.4f} ms (CUDA graph); "
+                  f"composite {ms:.4f} ms (time_call) {fmt_graph(graph)}; "
+                  f"bound {bound:.4f} ms (PERF.md section 2); e_i "
+                  f"{plain_ms / ms:.3f}")
+            out[name].append({"case": f"{s} shards", "launches": launches,
+                              "collectives": counts, "max_abs_err": err,
+                              "single_graph_ms": single, "ms": ms,
+                              "graph_ms": graph, "bound_ms": bound,
+                              "e_i": plain_ms / ms})
+    return out
+
+
+def domain_bude(deck, measured, card: str) -> List[Dict[str, Any]]:
+    """miniBUDE through ``shard_cuda`` at 2, 4 and 8 shards of bm1's poses:
+    bitwise against the single-device kernel."""
+    name = "minibude.fasten"
+    k = get_kernel(name)
+    fn = k.backend("shard_cuda").fn
+    want = bude_kernel.fasten(*deck)
+    single = graph_ms(lambda: bude_kernel.fasten(*deck))
+    out = []
+    for s in SHARD_COUNTS:
+        got, launches, counts = sharded_path(
+            lambda: k(*deck, backend="shard_cuda", num_shards=s),
+            bude_kernel.fasten)
+        if not torch.equal(got, want):
+            fail(f"domain {name} {s} shards: {int(got.ne(want).sum())} poses "
+                 f"differ from the single-device kernel")
+        domain_gate(f"{name} {s} shards", launches, s, counts,
+                    contract_for(name, "shard_cuda", {}, deck))
+        ms, graph = composite_ms(fn, deck, {"num_shards": s})
+        bound = measured[name]["bound_ms"]
+        plain_ms = measured[name]["plain_ms"]
+        print(f"domain {name} {s} shards [shard_cuda] on {card}: bitwise "
+              f"equal, {launches} launches ({BUDE['nposes'] // s} poses a "
+              f"shard); single-device kernel {single:.4f} ms (CUDA graph); "
+              f"composite {ms:.4f} ms (time_call) {fmt_graph(graph)}; bound "
+              f"{bound:.4f} ms (PERF.md section 2); e_i {plain_ms / ms:.3f}")
+        out.append({"case": f"{s} shards", "launches": launches,
+                    "collectives": counts, "single_graph_ms": single,
+                    "ms": ms, "graph_ms": graph, "bound_ms": bound,
+                    "e_i": plain_ms / ms})
+    return out
+
+
+def domain_hf(hf_inputs, measured, card: str) -> List[Dict[str, Any]]:
+    """Hartree-Fock N = 128 STO-3G through ``shard_cuda`` (each shard's
+    ``twoel_slab`` over its l range, one psum) at 2, 4 and 8 shards:
+    within ORACLE_TOL of the single-device build, a second call the same
+    bits."""
+    name = "hartree_fock.twoel"
+    n, ngauss = HF_CASES[0]
+    pos, dens = hf_inputs[n, ngauss]
+    k = get_kernel(name)
+    fn = k.backend("shard_cuda").fn
+    want = k(pos, dens, ngauss=ngauss, backend="cuda")
+    single = graph_ms(lambda: k(pos, dens, ngauss=ngauss, backend="cuda"),
+                      iters=HF_SHARD_ITERS)
+    label = f"{name} N={n} ngauss={ngauss}"
+    bound = measured[label]["bound_ms"]
+    plain_ms = measured[label]["plain_ms"]
+    out = []
+    for s in SHARD_COUNTS:
+        kw = {"ngauss": ngauss, "num_shards": s}
+        got, launches, counts = sharded_path(
+            lambda: k(pos, dens, backend="shard_cuda", **kw),
+            hf_kernel.twoel_slab)
+        err = max_abs_err(got, want, *HF_TOL, f"domain {label} {s} shards")
+        again = k(pos, dens, backend="shard_cuda", **kw)
+        if not torch.equal(again, got):
+            fail(f"domain {label} {s} shards: a second call differs in "
+                 f"{int(again.ne(got).sum())} entries")
+        domain_gate(f"{label} {s} shards", launches, s, counts,
+                    contract_for(name, "shard_cuda", {}, (pos, dens)))
+        ms, graph = composite_ms(fn, (pos, dens), kw, iters=HF_SHARD_ITERS)
+        print(f"domain {label} {s} shards [shard_cuda] on {card}: max abs "
+              f"err {err:.3g} against the single-device build, a second "
+              f"call bit-identical, {launches} twoel_slab launches, "
+              f"{counts['psum']} psum; single-device build {single:.4f} ms "
+              f"(CUDA graph); composite {ms:.4f} ms (time_call) "
+              f"{fmt_graph(graph)}; bound {bound:.4f} ms (PERF.md section "
+              f"2); e_i {plain_ms / ms:.3f}")
+        out.append({"case": f"N={n} {s} shards", "launches": launches,
+                    "collectives": counts, "max_abs_err": err,
+                    "single_graph_ms": single, "ms": ms, "graph_ms": graph,
+                    "bound_ms": bound, "e_i": plain_ms / ms})
+    return out
+
+
+def domain_cards(dev, u, coeffs, stream_args) -> None:
+    """The card count, and with two or more cards the slab stencil and dot
+    with their shards spread over the cards (one shard a card)."""
+    cards = torch.cuda.device_count()
+    print(f"domain decomposition: torch.cuda.device_count() = {cards}")
+    if cards < 2:
+        print("domain decomposition: shards spread over distinct cards were "
+              "not exercised (one card: every shard above shared it)")
+        return
+    s = domain.resolve_num_shards(STENCIL_L, None,
+                                  domain.mesh_device_count(dev))
+    got, launches, counts = sharded_path(
+        lambda: get_kernel("stencil7")(u, *coeffs, backend="shard_cuda",
+                                       num_shards=s), s7_kernel.laplacian)
+    if not torch.equal(got, s7_kernel.laplacian(u, *coeffs)):
+        fail(f"domain stencil7 slab {s} over {cards} cards: not bitwise "
+             f"equal to the single-device kernel")
+    domain_gate(f"stencil7 slab {s} over {cards} cards", launches, s, counts,
+                {**domain.NO_COLLECTIVES, "ppermute": 2})
+    a, b = stream_args["dot"]
+    s = domain.resolve_num_shards(STREAM_N, None,
+                                  domain.mesh_device_count(dev))
+    got, launches, counts = sharded_path(
+        lambda: get_kernel("babelstream.dot")(a, b, backend="shard_triton",
+                                              num_shards=s), bs_kernel.dot)
+    err = max_abs_err(got, bs_kernel.dot(a, b),
+                      *conformance.ORACLE_TOL["babelstream.dot"],
+                      f"domain babelstream.dot {s} shards over {cards} cards")
+    domain_gate(f"babelstream.dot {s} over {cards} cards", launches, s,
+                counts, domain.ONE_PSUM, 2)
+    print(f"domain decomposition over {cards} cards: stencil7 slab {s} "
+          f"bitwise equal, babelstream.dot max abs err {err:.3g}")
+
+
+def domain_phase(dev, u, coeffs, stream_args, deck, hf_inputs, measured,
+                 card: str) -> Dict[str, Any]:
+    """Phase 11: every science kernel's composite on the card (all shards on
+    one card: ``domain.placement``), after the conformance cells of the
+    sharded backends and their comm-contract audits on the small cases."""
+    for name in KERNELS:
+        k = get_kernel(name)
+        for backend in ("torch_shard", COMPOSITE[name]):
+            err = conformance.check_backend(name, backend, device=dev)
+            args, kwargs = conformance.case_tensors(name, dev)
+            audit = k.audit_comm_contract(*args, backend=backend, **kwargs)
+            twin = conformance.BITWISE_TWIN.get((name, backend))
+            print(f"conformance case {name}[{backend}] max abs err "
+                  f"{err:.3g}" + (f", bitwise equal to {twin}" if twin
+                                  else "")
+                  + f"; comm contract held in {len(audit)} variant(s): "
+                  + "; ".join(f"{v or 'default'} {c}" for v, c in audit))
+    with domain.placement([dev]):
+        out = {"stencil7": domain_stencil(dev, u, coeffs, measured, card),
+               **domain_streams(stream_args, measured, card),
+               "minibude.fasten": domain_bude(deck, measured, card),
+               SLAB: domain_hf(hf_inputs, measured, card)}
+    domain_cards(dev, u, coeffs, stream_args)
+    return out
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0,
@@ -3150,6 +3502,26 @@ def main() -> None:
         rec["tuned"] = tuned_records(tuned, rec["name"])
         if rec["name"] == SLAB:
             rec["tuned"] = [dict(case=slabs[0].label, **eq4["slab"])]
+
+    # ---- 11. domain decomposition --------------------------------------
+    t0 = time.perf_counter()
+    sharded = domain_phase(dev, u, coeffs, stream_args, deck, hf_inputs,
+                           measured, card)
+    new_s["domain decomposition"] = time.perf_counter() - t0
+    print(f"domain decomposition phase: "
+          f"{new_s['domain decomposition']:.1f} s")
+    for rec in records:
+        mine = sharded.get(rec["name"])
+        if mine is None:    # Hartree-Fock's composite runs the slab wrapper
+            continue
+        phase11 = sum(c["launches"] for c in mine)
+        rec["launches_by_path"] = {"main path": rec["launches"],
+                                   "domain decomposition": phase11}
+        rec["launches"] += phase11
+        kernel = "hartree_fock.twoel" if rec["name"] == SLAB \
+            else rec["name"]
+        rec["sharded"] = {"kernel": kernel, "backend": COMPOSITE[kernel],
+                          "cases": mine}
 
     # ---- 6. attention at the serving shapes ----------------------------
     attn: Dict[str, Dict[str, Any]] = {}

@@ -9,7 +9,8 @@ The port of ``repro.core.conformance`` for the kernels ported so far:
     FAILS conformance — coverage is mandatory);
   * ``ORACLE_TOL`` and ``BACKEND_TOL`` are the port's own copies of the
     reference's rows for the ported kernels (the tests hold the tables
-    equal);
+    equal), ``BITWISE_TWIN`` names the one-device backend each sharded
+    backend must equal bit for bit;
   * ``conformance_pairs()`` derives the (kernel, backend) matrix from the
     live registry; ``check_backend`` runs one cell of it, raising
     ``BackendUnavailableError`` when this host cannot run the pair.
@@ -28,7 +29,7 @@ from typing import Callable, Dict, List, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.portable import registry
+from repro_torch.core.portable import _leaves, max_abs_err, registry
 
 Tolerance = Union[str, Tuple[float, float]]  # "bitwise" | (rtol, atol)
 Case = Tuple[Tuple[np.ndarray, ...], dict]
@@ -136,11 +137,40 @@ ORACLE_TOL: Dict[str, Tolerance] = {
 }
 
 #: (kernel, backend) rows that differ from ORACLE_TOL — the reference's
-#: rows for the ported kernels: the attention oracles' own backends are
-#: bitwise (they are the functions the model's plain path calls)
+#: rows for the ported kernels: the sharded oracle backends apply the
+#: unchanged plain arithmetic (``xla_shard`` there, ``torch_shard`` here),
+#: and the attention oracles' own backends are bitwise (they are the
+#: functions the model's plain path calls)
 BACKEND_TOL: Dict[Tuple[str, str], Tolerance] = {
+    ("stencil7", "torch_shard"): "bitwise",
+    ("babelstream.copy", "torch_shard"): "bitwise",
+    ("babelstream.mul", "torch_shard"): "bitwise",
+    ("babelstream.add", "torch_shard"): "bitwise",
+    ("babelstream.triad", "torch_shard"): "bitwise",
+    ("minibude.fasten", "torch_shard"): "bitwise",
     ("attention.flash", "torch"): "bitwise",
     ("attention.decode", "torch"): "bitwise",
+}
+
+#: (kernel, backend) -> the backend whose output it must reproduce *bitwise*:
+#: a sharded backend runs the same per-shard arithmetic as the one-device
+#: backend it names, so sharding must not change a bit (the reference's
+#: ``shard_pallas -> pallas_interpret`` rows, ``src/repro/core/
+#: conformance.py:170-177``).  dot and Hartree-Fock are excluded: the psum
+#: changes their summation order.
+BITWISE_TWIN: Dict[Tuple[str, str], str] = {
+    ("stencil7", "shard_cuda"): "cuda",
+    ("babelstream.copy", "shard_triton"): "triton",
+    ("babelstream.mul", "shard_triton"): "triton",
+    ("babelstream.add", "shard_triton"): "triton",
+    ("babelstream.triad", "shard_triton"): "triton",
+    ("minibude.fasten", "shard_cuda"): "cuda",
+    ("stencil7", "torch_shard"): "torch",
+    ("babelstream.copy", "torch_shard"): "torch",
+    ("babelstream.mul", "torch_shard"): "torch",
+    ("babelstream.add", "torch_shard"): "torch",
+    ("babelstream.triad", "torch_shard"): "torch",
+    ("minibude.fasten", "torch_shard"): "torch",
 }
 
 
@@ -175,7 +205,9 @@ def conformance_pairs() -> List[Tuple[str, str]]:
 
 def check_backend(kernel: str, backend: str,
                   device: Union[str, torch.device] = "cpu") -> float:
-    """Run one conformance cell on ``device``; return the max abs error.
+    """Run one conformance cell on ``device``: ``backend`` against the
+    kernel's oracle, and against its bitwise twin (``BITWISE_TWIN``) when
+    the twin can run here; return the max abs error against the oracle.
 
     Raises ``KeyError`` for an unregistered kernel/backend,
     ``AssertionError`` for a missing case or tolerance or a mismatch, and
@@ -189,4 +221,12 @@ def check_backend(kernel: str, backend: str,
             f"repro_torch.core.conformance.ORACLE_TOL")
     args, kwargs = case_tensors(kernel, device)
     rtol, atol = (0.0, 0.0) if tol == "bitwise" else tol
-    return k.validate(*args, backend=backend, rtol=rtol, atol=atol, **kwargs)
+    err = k.validate(*args, backend=backend, rtol=rtol, atol=atol, **kwargs)
+    twin = BITWISE_TWIN.get((kernel, backend))
+    if twin is not None and k.backend(twin).is_available():
+        want = _leaves(k._require_available(twin)(*args, **kwargs))
+        got = _leaves(k._require_available(backend)(*args, **kwargs))
+        for w, g in zip(want, got):
+            max_abs_err(g, w, 0.0, 0.0,
+                        f"{kernel}[{backend}] vs its bitwise twin {twin}")
+    return err

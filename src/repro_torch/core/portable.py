@@ -196,6 +196,12 @@ class PortableKernel:
     #: the static auditor is ported)
     roofline_contracts: Dict[str, Dict[str, Any]] = dataclasses.field(
         default_factory=dict)
+    #: backend name -> declared communication contract (see
+    #: ``declare_comm_contract``); ``audit_comm_contract`` holds a run to it
+    comm_contracts: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    #: backend name -> grid-coverage metadata (see ``declare_grid_contract``)
+    grid_contracts: Dict[str, Dict[str, Any]] = dataclasses.field(
+        default_factory=dict)
 
     # ---- registration -------------------------------------------------
     def add_backend(self, name: str, fn: Callable[..., Any],
@@ -238,6 +244,74 @@ class PortableKernel:
 
     def roofline_contract(self, backend: str) -> Dict[str, Any]:
         return self.roofline_contracts.get(backend, {})
+
+    def declare_comm_contract(self, backends: Union[str, Sequence[str]],
+                              contract: Any) -> None:
+        """Declare the collective traffic one (sharded) backend may emit.
+
+        ``contract`` is either a dict ``{"ppermute": n, "psum": n,
+        "all_gather": n}`` (one variant, default call parameters), or a
+        callable ``contract(*case_args)`` returning a list of
+        ``(variant_kwargs, expectation_dict)`` pairs — the audit runs the
+        backend once per variant.  An expectation may carry other keys
+        (the reference's ``"overlap_shape"``), which the port's audit
+        keeps as metadata.  Backends with no declared contract are audited
+        against *zero* collectives.
+        """
+        names = [backends] if isinstance(backends, str) else list(backends)
+        for n in names:
+            self.comm_contracts[n] = contract
+
+    def comm_contract(self, backend: str) -> Any:
+        return self.comm_contracts.get(backend)
+
+    def declare_grid_contract(self, backends: Union[str, Sequence[str]], *,
+                              accumulator_outputs: Sequence[int] = ()) -> None:
+        """Declare grid-coverage metadata for one or more backends.
+
+        ``accumulator_outputs`` lists output indices whose block is *meant*
+        to be revisited across a launch grid (a sequential accumulator).
+        Any other revisited output block is a write race, and an unvisited
+        one a hole: findings of the grid-coverage pass (ROADMAP item 15).
+        No kernel of the port revisits an output block, so none declares
+        one.
+        """
+        names = [backends] if isinstance(backends, str) else list(backends)
+        for n in names:
+            self.grid_contracts[n] = {
+                "accumulator_outputs": tuple(accumulator_outputs)}
+
+    def grid_contract(self, backend: str) -> Dict[str, Any]:
+        return self.grid_contracts.get(backend, {})
+
+    def audit_comm_contract(self, *args: Any, backend: str,
+                            **kwargs: Any) -> List[Tuple[Dict[str, Any],
+                                                         Dict[str, int]]]:
+        """Run ``backend`` once per declared variant and hold the
+        collectives it issued (``distributed.collectives.counting``) to the
+        contract; a backend with none is held to zero collectives.
+        Returns ``[(variant_kwargs, counts), ...]``; raises
+        ``AssertionError`` naming the first variant whose counts differ."""
+        from repro_torch.distributed import collectives
+        contract = self.comm_contract(backend)
+        if contract is None:
+            variants = [({}, {})]
+        elif callable(contract):
+            variants = contract(*args)
+        else:
+            variants = [({}, contract)]
+        fn = self._require_available(backend)
+        out = []
+        for variant, expect in variants:
+            with collectives.counting() as counts:
+                fn(*args, **{**kwargs, **variant})
+            want = {c: int(expect.get(c, 0)) for c in collectives.COLLECTIVES}
+            if counts != want:
+                raise AssertionError(
+                    f"{self.name}[{backend}] {variant or 'default call'} "
+                    f"issued {counts}, its comm contract says {want}")
+            out.append((variant, dict(counts)))
+        return out
 
     def backend(self, name: Optional[str] = None) -> Backend:
         if name is None:

@@ -74,7 +74,7 @@ import torch
 
 from repro_torch.core import telemetry as tel
 from repro_torch.core.portable import (PortableKernel, _cuda_device,
-                                       registry)
+                                       cuda_probe, registry, triton_probe)
 
 __all__ = [
     "TuningKey",
@@ -533,9 +533,11 @@ def tune(kernel: PortableKernel, *args: Any, backend: str,
     Deterministic: the grid is walked in declaration order and ties break
     toward the earlier point, so two runs on the same host pick the same
     configuration.  A cache hit skips all timing.  An unavailable backend,
-    a hand-written backend given no CUDA tensor (its wrapper would run the
-    plain version) or a backend with an empty valid grid returns
-    ``skipped=<reason>`` with the declared defaults instead of raising.
+    a hand-written backend (the native one, or any whose probe is the CUDA
+    or Triton toolchain's, as the sharded composites') given no CUDA tensor
+    (its wrappers would run the plain version) or a backend with an empty
+    valid grid returns ``skipped=<reason>`` with the declared defaults
+    instead of raising.
 
     ``search`` picks the strategy: ``"exhaustive"`` times every valid
     point; ``"coordinate"`` runs a budgeted coordinate descent
@@ -565,7 +567,9 @@ def tune(kernel: PortableKernel, *args: Any, backend: str,
         return _skip(kernel, backend,
                      f"backend {backend!r} unavailable: {reason}")
     on_cuda = _cuda_device(args, kwargs) is not None
-    if backend == kernel.native and not on_cuda:
+    hand_written = backend == kernel.native or b.probe in (cuda_probe,
+                                                           triton_probe)
+    if hand_written and not on_cuda:
         return _skip(kernel, backend,
                      f"backend {backend!r} launches its kernel on CUDA "
                      f"tensors only; these inputs are on the CPU")

@@ -119,7 +119,8 @@ def fasten(protein_pos: torch.Tensor, protein_par: torch.Tensor,
         lpos0 = ligand_pos[il, :3]
         l_hbtype, l_radius, l_hphb, l_elsc = ligand_par[il]
         # the ligand atom under every pose: (P, 3)
-        lpos = torch.einsum("pij,j->pi", m[:, :, :3], lpos0) + m[:, :, 3]
+        lpos = (m[:, :, 0] * lpos0[0] + m[:, :, 1] * lpos0[1]
+                + m[:, :, 2] * lpos0[2] + m[:, :, 3])
 
         lhphb_ltz = l_hphb < ZERO
         lhphb_gtz = l_hphb > ZERO
@@ -145,7 +146,8 @@ def fasten(protein_pos: torch.Tensor, protein_par: torch.Tensor,
 
         # distances: (natpro, P)
         d = lpos.T[None, :, :] - p_xyz[:, :, None]   # (natpro, 3, P)
-        distij = torch.sqrt(torch.sum(d * d, dim=1))
+        distij = torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                            + d[:, 2] * d[:, 2])
         distbb = distij - radij
         zone1 = distbb < ZERO
 
@@ -163,8 +165,25 @@ def fasten(protein_pos: torch.Tensor, protein_par: torch.Tensor,
                                          ONE_, ZERO_)
         dslv_e = dslv_e * torch.where(zone1, ONE_, coeff)
 
-        etot = etot + torch.sum(e_steric + e_chrg + dslv_e, dim=0)
+        etot = etot + _sum_rows(e_steric + e_chrg + dslv_e)
     return etot * HALF
+
+
+def _sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x.sum(dim=0)`` as a fixed tree of elementwise adds (rows ``i`` and
+    ``i + h`` first), so a column's sum has the same bits whatever the
+    other columns: ATen's reductions (and its small matrix products)
+    take another path for a narrow tensor, and a pose's energy then
+    depends on how many poses share the call.  The pose-parallel
+    ``torch_shard`` backend is bitwise equal to this function because of
+    it."""
+    if x.shape[0] == 0:
+        return x.new_zeros(x.shape[1:])
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        top = x[:h] + x[h:2 * h]
+        x = torch.cat([top, x[2 * h:]]) if x.shape[0] % 2 else top
+    return x[0]
 
 
 #: the columns of ``pair_table``: (radij, 1 / radij, elcdst, elcdst1,

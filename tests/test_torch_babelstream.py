@@ -93,7 +93,9 @@ def test_bytes_model_matches_reference(op):
 def test_registered_backends():
     for op in OPS:
         k = get_kernel(f"babelstream.{op}")
-        assert set(k.backends) == {"torch", "triton"}
+        # the sharded backends of repro_torch.distributed ride along
+        assert set(k.backends) == {"torch", "triton", "torch_shard",
+                                   "shard_triton"}
         assert (k.oracle, k.native) == ("torch", "triton")
         assert k.backend("triton").fn is getattr(K, op)
         assert k.roofline_contract("triton") == {"bound": "memory"}

@@ -55,7 +55,8 @@ def test_quickstart_path_on_cpu():
 
     # 1. a science kernel through the registry on its backends
     triad = get_kernel("babelstream.triad")
-    assert sorted(triad.backends) == ["torch", "triton"]
+    assert sorted(triad.backends) == ["shard_triton", "torch", "torch_shard",
+                                      "triton"]
     out = triad(a, b)
     out_ref = triad(a, b, backend="torch")
     torch.testing.assert_close(out, out_ref, rtol=0, atol=0)
@@ -87,9 +88,15 @@ def test_quickstart_path_on_cpu():
 
 def test_registry_holds_the_slice():
     assert tuple(registry.names()) == tuple(sorted(PORTED + ENGINE[:1]))
+    # the science kernels also carry the sharded backends (torch_shard and
+    # the composite of their hand-written kernel)
+    sharded = {name: ("torch_shard", "shard_" + get_kernel(name).native)
+               for name in PORTED
+               if name.startswith(("babelstream", "stencil", "minibude",
+                                   "hartree"))}
     assert conformance.conformance_pairs() == sorted(
         [(name, b) for name in PORTED
-         for b in ("torch", get_kernel(name).native)]
+         for b in ("torch", get_kernel(name).native) + sharded.get(name, ())]
         + [(ENGINE[0], b) for b in ENGINE[1]])
 
 

@@ -22,6 +22,7 @@ import repro_torch.kernels  # noqa: F401
 from repro_torch.configs import get_config
 from repro_torch.core import (Efficiency, conformance, get_kernel, phi_bar,
                               time_call, tuning)
+from repro_torch.distributed import collectives
 from repro_torch.core.portable import (CALLS_PER_SAMPLE, LONG_CALL_S,
                                        LONG_CALL_SAMPLES, max_abs_err,
                                        time_graph)
@@ -1050,3 +1051,141 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         assert a.device.type == "cuda"
         assert float(((a.cpu() - p0) - (b - p0)).abs().max()) <= 0.5 * lr
 
+
+
+# ---- domain decomposition: the composites of the hand-written kernels ----
+SHARDED = ("babelstream.add", "babelstream.copy", "babelstream.dot",
+           "babelstream.mul", "babelstream.triad", "hartree_fock.twoel",
+           "minibude.fasten", "stencil7")
+COMPOSITE = {name: "shard_triton" if name.startswith("babelstream")
+             else "shard_cuda" for name in SHARDED}
+
+
+def _sharded_launches(wrapper, fn):
+    before = wrapper.launches
+    with collectives.counting() as counts:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, wrapper.launches - before, dict(counts)
+
+
+@pytest.mark.parametrize("name", SHARDED)
+@pytest.mark.parametrize("kind", ["torch_shard", "composite"])
+def test_sharded_conformance_cell(cuda, name, kind):
+    """Each sharded backend's conformance cell on the card, against the
+    oracle and (BITWISE_TWIN) its single-device twin, and its comm
+    contract; the default backend stays the single-device kernel."""
+    backend = COMPOSITE[name] if kind == "composite" else kind
+    k = get_kernel(name)
+    args, kwargs = conformance.case_tensors(name, cuda)
+    assert k.default_backend(*args) == k.native
+    conformance.check_backend(name, backend, device=cuda)
+    k.audit_comm_contract(*args, backend=backend, **kwargs)
+
+
+def test_shard_cuda_stencil_is_bitwise_and_one_launch_a_shard(cuda):
+    """Slab 2/4/8, the pencil grids, a tile point and one plane per shard:
+    every composite equals the single-device kernel at its tile point bit
+    for bit, one launch a shard, 2 (slab) or 4 (pencil) ppermutes."""
+    k = get_kernel("stencil7")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    u = torch.randn(16, 40, 96, generator=g, device=cuda)
+    cases = ([({"num_shards": s}, s, 2) for s in (2, 4, 8)]
+             + [({"decomp": "pencil", "shard_grid": grid},
+                 grid[0] * grid[1], 4) for grid in ((2, 2), (4, 2), (2, 4))]
+             + [({"num_shards": 4, "block_x": 128, "block_y": 4,
+                  "zchunk": 16}, 4, 2)])
+    for kw, shards, ppermutes in cases:
+        tile = {t: kw[t] for t in ("block_x", "block_y", "zchunk")
+                if t in kw}
+        want = stencil_kernel.laplacian(u, **tile)
+        got, n, counts = _sharded_launches(
+            stencil_kernel.laplacian,
+            lambda: k(u, backend="shard_cuda", **kw))
+        assert torch.equal(got, want), kw
+        assert n == shards and counts["ppermute"] == ppermutes, (kw, n)
+    u1 = torch.randn(8, 16, 64, generator=g, device=cuda)
+    assert torch.equal(k(u1, backend="shard_cuda", num_shards=8),
+                       stencil_kernel.laplacian(u1))
+
+
+def test_shard_triton_streams(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    a, b = (torch.randn((1 << 16) + 8, generator=g, device=cuda)
+            for _ in range(2))
+    for op in OPS:
+        wrapper = getattr(stream_kernel, op)
+        xs = (a,) if op in ("copy", "mul") else (a, b)
+        want = wrapper(*xs)
+        for s in (2, 4, 8):
+            got, n, counts = _sharded_launches(wrapper, lambda: get_kernel(
+                f"babelstream.{op}")(*xs, backend="shard_triton",
+                                     num_shards=s))
+            if op == "dot":
+                assert n == 2 * s and counts["psum"] == 1
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+            else:
+                assert n == s and counts["psum"] == 0
+                assert torch.equal(got, want), (op, s)
+
+
+def test_shard_cuda_minibude_is_bitwise(cuda):
+    deck = bude_ops.make_deck(97, 16, 4096, seed=2, device=cuda)
+    want = bude_kernel.fasten(*deck)
+    for s in (2, 4, 8):
+        got, n, _ = _sharded_launches(bude_kernel.fasten, lambda: get_kernel(
+            "minibude.fasten")(*deck, backend="shard_cuda", num_shards=s))
+        assert n == s and torch.equal(got, want), s
+
+
+def test_shard_cuda_hartree_fock(cuda):
+    pos = hf_ref.helium_lattice(16, device=cuda)
+    dens = hf_ref.initial_density(16, device=cuda)
+    k = get_kernel("hartree_fock.twoel")
+    want = k(pos, dens, backend="cuda")
+    for s in (2, 4, 8):
+        got, n, counts = _sharded_launches(
+            hf_kernel.twoel_slab,
+            lambda: k(pos, dens, backend="shard_cuda", num_shards=s))
+        assert n == s and counts["psum"] == 1
+        torch.testing.assert_close(got, want, rtol=HF_RTOL, atol=HF_ATOL)
+        assert torch.equal(got, k(pos, dens, backend="shard_cuda",
+                                  num_shards=s))
+
+
+def test_composites_capture_as_cuda_graphs(cuda):
+    """One card, one stream, no side streams: each family's composite is
+    captured as one CUDA graph, whose replay gives the eager call's bits."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    u = torch.randn(16, 32, 64, generator=g, device=cuda)
+    a = torch.randn(1 << 16, generator=g, device=cuda)
+    deck = bude_ops.make_deck(16, 4, 512, seed=0, device=cuda)
+    pos = hf_ref.helium_lattice(8, device=cuda)
+    dens = hf_ref.initial_density(8, device=cuda)
+    calls = [lambda: get_kernel("stencil7")(u, backend="shard_cuda",
+                                            decomp="pencil",
+                                            shard_grid=(2, 2)),
+             lambda: get_kernel("babelstream.triad")(
+                 a, a, backend="shard_triton", num_shards=4),
+             lambda: get_kernel("minibude.fasten")(
+                 *deck, backend="shard_cuda", num_shards=4),
+             lambda: get_kernel("hartree_fock.twoel")(
+                 pos, dens, backend="shard_cuda", num_shards=4)]
+    for call in calls:
+        eager = call()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
+        assert time_graph(call, iters=2) > 0
+
+
+def test_selftest_passes_on_the_card(cuda, capsys):
+    from repro_torch.distributed import selftest
+    assert selftest.main(["--device", "cuda"]) == 0
+    out = capsys.readouterr().out
+    assert "selftest ok (15 batteries)" in out
+    assert "skipped" not in out
