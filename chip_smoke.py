@@ -251,6 +251,26 @@ and runs each hand-written kernel once per shard.
                 restore, ``seek`` and the same 2 steps (``RESUME_TOL``;
                 bitwise equality printed).  Gates 2 and 4-7 run at 4 of
                 the 24 layers, at full width.
+  12. the roofline on the card (``core/roofline.py``, the op-cost walker
+                ``core/op_cost.py``, the dry run ``launch/dryrun.py``):
+                (a) ``detect_chip()`` must name ``NVIDIA_H100``; (b) four
+                full-size dry-run cells on this machine's PyTorch, each on
+                a fake world of 256 or 512 ranks (granite-3-8b
+                ``decode_32k`` and ``train_4k`` on 16x16, deepseek-moe-16b
+                ``train_4k`` on 2x16x16, rwkv6-3b ``long_500k`` on 16x16),
+                their artifacts in ``build/dryrun/`` and each rank's bytes
+                against the card's 80 GiB; (c) three real steps on the
+                card counted ``kernel_adjusted`` by the walker, each
+                against its twin on ``meta``: granite-3-8b's
+                ``decode_step`` at the engine's shape (8 rows, every one of
+                the 4096 cache slots filled; device time a CUDA-graph
+                replay), a 2048-token ``prefill`` (CUDA events) and
+                stablelm-1.6b's training step of phase 10 (its median
+                step).  Each prints its ``RooflineTerms`` and its share,
+                the bound over the measured time.  Gates: every share at
+                most 1.0 (a bound above the measured time is a wrong
+                count), and the walker's flops on each real step equal to
+                those on its meta twin.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each record with its tuned points, their provenance and times; a science
@@ -296,6 +316,10 @@ from repro_torch.core import conformance  # noqa: E402
 from repro_torch.core import telemetry as tel  # noqa: E402
 from repro_torch.core import tuning  # noqa: E402
 from repro_torch.core.telemetry import cudamon  # noqa: E402
+from repro_torch.core.op_cost import measure, meta_twin  # noqa: E402
+from repro_torch.core.roofline import (  # noqa: E402
+    NVIDIA_H100, detect_chip, roofline_from_cost)
+from repro_torch.core.roofline import model_flops as roofline_flops  # noqa: E402,E501
 from repro_torch.distributed import collectives, domain  # noqa: E402
 from repro_torch.core.portable import (  # noqa: E402
     LONG_CALL_S, time_graph)
@@ -314,7 +338,7 @@ from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.chunked_attention import attend_chunked  # noqa: E402,E501
 from repro_torch.models.common import count_params  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    forward, init_params, tree_map)
+    forward, init_caches, init_params, tree_map)
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.optim.adamw import leaves as tree_leaves  # noqa: E402
 from repro_torch.training.train_step import (  # noqa: E402
@@ -476,10 +500,11 @@ LIBRARY_NAME = {
 
 # data-sheet rates (dense, no sparsity): HBM bytes/s, float32 FLOP/s
 # outside the tensor cores, and bfloat16 tensor-core FLOP/s; the first name
-# that occurs in the device name
+# that occurs in the device name; the SXM card's HBM and bf16 rates are
+# ``core/roofline.py``'s NVIDIA_H100
 DATASHEET = (
     ("H100 PCIe", "H100 PCIe", 2.0e12, 51e12, 756e12),
-    ("H100", "H100 SXM", 3.35e12, 67e12, 989e12),
+    ("H100", "H100 SXM", NVIDIA_H100.hbm_bw, 67e12, NVIDIA_H100.peak_flops),
 )
 
 
@@ -2612,10 +2637,11 @@ def moved_leaves(before, after) -> Tuple[int, int]:
 
 
 def model_flops(cfg, n_params: int, rows: int, seq: int) -> float:
-    """6 N D + the causal attention's 12 L H Dh B S(S+1)/2: the forward
-    and backward work of the model, the remat recompute not counted."""
+    """6 N D (``core/roofline.py``) + the causal attention's
+    12 L H Dh B S(S+1)/2: the forward and backward work of the model, the
+    remat recompute not counted."""
     pairs = rows * seq * (seq + 1) / 2
-    return (6.0 * n_params * rows * seq
+    return (roofline_flops(n_params, rows * seq, "train")
             + 12.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * pairs)
 
 
@@ -2676,11 +2702,14 @@ def guard_gates(cfg, params, batch, tcfg) -> None:
         del os.environ[attention.ATTN_BACKEND_ENV]
 
 
-def train_phase(dev, seed: int, card: str, peak_bf16: float
-                ) -> Dict[str, Any]:
+def train_phase(dev, seed: int, card: str, peak_bf16: float,
+                after_timed: Callable[..., Any] = None) -> Dict[str, Any]:
     """Phase 10: stablelm-1.6b trained at full width and depth (float32
     masters, bf16 compute, AdamW at the reference's defaults but
-    ``warmup_steps=2``), with its seven gates."""
+    ``warmup_steps=2``), with its seven gates.  ``after_timed(cfg, state,
+    batch, tcfg, step_ms)``, when given, runs after the timed steps, on
+    the model as it stands (phase 12's roofline); its result is the
+    returned ``"after_timed"``."""
     t_start = time.perf_counter()
 
     def lap(what: str) -> None:
@@ -2769,6 +2798,10 @@ def train_phase(dev, seed: int, card: str, peak_bf16: float
     if not all(math.isfinite(x) for x in losses):
         fail(f"training: non-finite losses {losses}")
     lap("the timed steps")
+    extra = None
+    if after_timed is not None:
+        extra = after_timed(full, state, batches[1], tcfg, step_ms)
+        lap("phase 12's roofline of a step")
 
     # one step under torch.profiler (device records only: a step makes
     # ~10^5 host records)
@@ -2915,7 +2948,162 @@ def train_phase(dev, seed: int, card: str, peak_bf16: float
     lap("gate 7")
     return {"step_ms": step_ms, "tok_per_s": tok_s, "peak_gb": peak_gb,
             "mfu": mfu, "chunked_share": share, "chunked_calls":
-            chunked_calls, "seconds": time.perf_counter() - t_start}
+            chunked_calls, "seconds": time.perf_counter() - t_start,
+            "after_timed": extra}
+
+
+# ---- slice 14: the roofline on the card ------------------------------------
+#: (arch, shape, multi-pod) of the full-size dry-run cells phase 12 runs
+DRYRUN_CELLS = (("granite-3-8b", "decode_32k", False),
+                ("granite-3-8b", "train_4k", False),
+                ("deepseek-moe-16b", "train_4k", True),
+                ("rwkv6-3b", "long_500k", False))
+ROOFLINE_PREFILL = 2048   # tokens of phase 12's granite-3-8b prefill
+
+
+def roofline_chip(card: str):
+    """Phase 12 (a): the chip ``core/roofline.py`` names for this card."""
+    chip = detect_chip()
+    print(f"roofline chip: detect_chip() = {chip.name} ({chip.peak_flops:.4g}"
+          f" FLOP/s bf16, {chip.hbm_bw:.4g} B/s HBM, {chip.ici_bw:.4g} B/s "
+          f"a link, {chip.hbm_bytes / 2 ** 30:.0f} GiB) on {card}")
+    if chip is not NVIDIA_H100:
+        fail(f"detect_chip() names {chip.name}, not {NVIDIA_H100.name}")
+    return chip
+
+
+def dryrun_phase(card: str) -> List[Dict[str, Any]]:
+    """Phase 12 (b): the full-size dry-run cells on this machine's PyTorch,
+    each written to ``build/dryrun/<mesh>/``; fails on any cell that does
+    not run."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hostsim import close_fake_world
+    out = []
+    try:
+        for arch, shape, multi in DRYRUN_CELLS:
+            tag = "multipod_2x16x16" if multi else "pod_16x16"
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(arch, shape, multi,
+                                  os.path.join(dryrun.ARTIFACT_DIR, tag))
+            secs = time.perf_counter() - t0
+            if rec["status"] != "ok":
+                fail(f"dry run {tag} {arch} {shape}: {rec['status']} "
+                     f"{rec['reason']}")
+            pc = rec["per_chip"]
+            print(f"dry run {tag} {arch} {shape}: {secs:.1f} s on the host; "
+                  f"per rank {pc['argument_bytes'] / 2 ** 30:.3f} GiB of "
+                  f"arguments, peak {pc['peak_bytes'] / 2 ** 30:.3f} GiB "
+                  f"against the card's {NVIDIA_H100.hbm_bytes / 2 ** 30:.0f}"
+                  f" GiB (fits: {rec['fits_hbm']}); {pc['flops']:.4g} flops,"
+                  f" {pc['hbm_bytes']:.4g} HBM bytes, "
+                  f"{pc['collective_bytes']:.4g} collective bytes a rank; "
+                  f"{rec['dominant']}-bound, {rec['bound_s'] * 1e3:.3f} ms;"
+                  f" fallbacks {rec['fallbacks']}; kernel calls "
+                  f"{rec['kernel_calls']}")
+            out.append({"arch": arch, "shape": shape, "mesh": tag,
+                        "seconds": secs, "bound_s": rec["bound_s"],
+                        "dominant": rec["dominant"],
+                        "peak_bytes": pc["peak_bytes"],
+                        "argument_bytes": pc["argument_bytes"],
+                        "fits_hbm": rec["fits_hbm"]})
+    finally:
+        close_fake_world()
+    return out
+
+
+def step_roofline(label: str, step: Callable[..., Any], args: Tuple[Any, ...],
+                  measured_ms: float, how: str, card: str
+                  ) -> Dict[str, Any]:
+    """Phase 12 (c): one real step counted ``kernel_adjusted`` by the
+    walker and its meta twin; the roofline's share of the measured time.
+    Gates: the share at most 1.0, the flops equal."""
+    t0 = time.perf_counter()
+    _, cost = measure(step, *args, kernel_adjusted=True)
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, twin = measure(step, *meta_twin(args), kernel_adjusted=True)
+    meta_s = time.perf_counter() - t0
+    terms = roofline_from_cost(cost, NVIDIA_H100)
+    share = terms.bound_s / (measured_ms / 1e3)
+    print(f"roofline {label} on {card}: {terms.flops:.6g} flops "
+          f"({cost.matmul_flops:.6g} in matmuls), {terms.hbm_bytes:.6g} HBM "
+          f"bytes, {cost.ops:.0f} ops, kernel calls "
+          f"{dict(cost.kernel_calls)}; compute {terms.compute_s * 1e3:.4f} "
+          f"ms, memory {terms.memory_s * 1e3:.4f} ms: {terms.dominant}-bound"
+          f" at {terms.bound_s * 1e3:.4f} ms against {measured_ms:.4f} ms "
+          f"measured ({how}) = {share:.2%}; the walker took {real_s:.1f} s "
+          f"on the card, {meta_s:.1f} s on the meta twin "
+          f"({twin.flops:.6g} flops)")
+    if share > 1.0:
+        fail(f"roofline {label}: the bound {terms.bound_s * 1e3:.4f} ms is "
+             f"above the measured {measured_ms:.4f} ms: a wrong count")
+    if twin.flops != cost.flops:
+        fail(f"roofline {label}: the walker counts {cost.flops!r} flops on "
+             f"the card and {twin.flops!r} on the meta twin")
+    return {"terms": terms.to_json(), "measured_ms": measured_ms,
+            "share": share, "how": how, "meta_flops": twin.flops}
+
+
+def roofline_serving(params, cfg, dev, seed: int, card: str
+                     ) -> Dict[str, Any]:
+    """Phase 12 (c), serving: granite-3-8b's decode step at the engine's
+    shape, every cache slot filled, and a 2048-token prefill, each on the
+    hand-written kernels."""
+    rows, cache_len = SERVE["num_slots"], SERVE["cache_len"]
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+    caches = init_caches(cfg, rows, cache_len, dev)
+    slots = torch.arange(cache_len, dtype=torch.int32, device=dev)
+
+    def fill(t, name):
+        if name == "pos":
+            t.copy_(slots.expand_as(t))
+        else:
+            t.normal_(generator=g)
+
+    for tree in [*caches["eager"].values(), *caches["segments"]]:
+        for name in ("k", "v", "pos"):
+            fill(tree["self"][name], name)
+    tokens = torch.randint(0, cfg.vocab_size, (rows, 1), generator=g,
+                           device=dev, dtype=torch.int32)
+    positions = torch.full((rows, 1), cache_len, dtype=torch.int32,
+                           device=dev)
+
+    def decode(p, c, tok, pos):
+        return decode_step(p, cfg, tok, pos, c)[0]
+
+    decode(params, caches, tokens, positions)        # the decode counters
+    replay_ms = graph_ms(lambda: decode(params, caches, tokens, positions))
+    out = {"decode": step_roofline(
+        f"{cfg.name} decode_step ({rows} rows, {cache_len} slots filled)",
+        decode, (params, caches, tokens, positions), replay_ms,
+        "a CUDA-graph replay", card)}
+    del caches
+
+    prompt = torch.randint(0, cfg.vocab_size, (1, ROOFLINE_PREFILL),
+                           generator=g, device=dev, dtype=torch.int32)
+
+    def fill_cache(p, tok):
+        return prefill(p, cfg, tok, cache_len=cache_len)[0]
+
+    prefill_ms = events_ms(lambda: fill_cache(params, prompt), iters=5)
+    out["prefill"] = step_roofline(
+        f"{cfg.name} prefill (1 x {ROOFLINE_PREFILL} tokens, cache "
+        f"{cache_len})", fill_cache, (params, prompt), prefill_ms,
+        "CUDA events, 5 calls", card)
+    return out
+
+
+def roofline_training(cfg, state, batch, tcfg, step_ms: float, card: str
+                      ) -> Dict[str, Any]:
+    """Phase 12 (c), training: phase 10's step, against its median."""
+    def step(st, b):
+        return train_step(st, b, cfg=cfg, tcfg=tcfg)[1]["loss"]
+    return step_roofline(f"{cfg.name} train_step ({TRAIN['rows']} x "
+                         f"{TRAIN['seq']}, {tcfg.microbatches} microbatches,"
+                         f" remat)", step, (state, batch), step_ms,
+                         "phase 10's median step, synchronised wall", card)
+
 
 
 # ---- slice 13: domain decomposition ----------------------------------------
@@ -3605,6 +3793,11 @@ def main() -> None:
                                served["tokens"], tuned, tuned_path,
                                untuned_path, tmp)
     new_s["tuned engine and telemetry"] = time.perf_counter() - t0
+    # phase 12 (c), serving: the roofline of two real steps on these weights
+    t0 = time.perf_counter()
+    roofline_chip(card)
+    roofline = roofline_serving(params, cfg, dev, args.seed, card)
+    new_s["roofline"] = time.perf_counter() - t0
     os.environ[tuning.CACHE_ENV] = str(untuned_path)
     del params
     gc.collect()
@@ -3673,7 +3866,10 @@ def main() -> None:
     # ---- 10. training ---------------------------------------------------
     t0 = time.perf_counter()
     free_card()
-    trained = train_phase(dev, args.seed, card, peak_bf16)
+    trained = train_phase(
+        dev, args.seed, card, peak_bf16,
+        after_timed=lambda *a: roofline_training(*a, card=card))
+    roofline["train"] = trained.pop("after_timed")
     new_s["training"] = time.perf_counter() - t0
     print(f"training {TRAIN_ARCH}: {json.dumps(trained)}")
     print(f"training phase: {new_s['training']:.1f} s")
@@ -3690,6 +3886,21 @@ def main() -> None:
                                    for path, counts in by_path.items()}
         rec["family_cases"] = [c for c in cases9 if c["case"].startswith(
             "decode" if name == ATTN[1] else "flash")]
+    # ---- 12. the roofline: the dry run's full-size cells -----------------
+    t0 = time.perf_counter()
+    cells = dryrun_phase(card)
+    new_s["roofline"] += time.perf_counter() - t0
+    print("roofline shares on " + card + ": " + ", ".join(
+        f"{k} {v['share']:.2%} ({v['terms']['dominant']})"
+        for k, v in roofline.items()))
+    print(json.dumps({"roofline": {k: {"share": v["share"],
+                                       "measured_ms": v["measured_ms"],
+                                       "bound_s": v["terms"]["bound_s"],
+                                       "flops": v["terms"]["flops"],
+                                       "hbm_bytes": v["terms"]["hbm_bytes"],
+                                       "dominant": v["terms"]["dominant"]}
+                                   for k, v in roofline.items()},
+                      "dryrun": cells}))
     print(f"torch.profiler: {len(PROFILE_LOSS)} profiles dropped their "
           f"first {min(PROFILE_LOSS)}-{max(PROFILE_LOSS)} device records "
           f"(median {int(np.median(PROFILE_LOSS))}), of the "

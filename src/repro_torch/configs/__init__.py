@@ -1,17 +1,22 @@
 """Architecture registry of the port: ``get_config(arch)`` -> ModelConfig.
 
 The reference's ten archs (``repro/configs/__init__.py``), each with its
-full-size ``CONFIG`` and its ``SMOKE`` variant, field for field the same.
+full-size ``CONFIG`` and its ``SMOKE`` variant, field for field the same,
+and the four shape cells with ``cell_applicable``.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 from repro_torch.configs import (deepseek_67b, deepseek_moe_16b,
                                  granite_3_8b, hymba_1_5b,
                                  llama4_scout_17b_a16e, pixtral_12b,
                                  rwkv6_3b, stablelm_1_6b, starcoder2_3b,
                                  whisper_tiny)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (DECODE_32K, LONG_500K, PREFILL_32K,
+                                      SHAPES, TRAIN_4K, ModelConfig,
+                                      ShapeConfig)
 
 _MODULES = {
     "granite-3-8b": granite_3_8b,
@@ -36,4 +41,14 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-__all__ = ["ARCH_IDS", "get_config", "ModelConfig"]
+def cell_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch x shape) cell runs, else the recorded skip reason."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("skipped: pure full-attention arch; long_500k is run "
+                       "only for sub-quadratic archs (DESIGN.md §5)")
+    return True, ""
+
+
+__all__ = ["ARCH_IDS", "get_config", "cell_applicable", "SHAPES",
+           "ModelConfig", "ShapeConfig", "TRAIN_4K", "PREFILL_32K",
+           "DECODE_32K", "LONG_500K"]

@@ -1,4 +1,5 @@
-"""Core: the portable-kernel registry, tuning and the paper's metrics."""
+"""Core: the portable-kernel registry, tuning, the paper's metrics and the
+roofline."""
 
 from repro_torch.core.portable import (  # noqa: F401
     Backend,
@@ -29,4 +30,15 @@ from repro_torch.core.metrics import (  # noqa: F401
     phi_bar,
     stencil7_effective_bandwidth,
     stencil7_effective_bytes,
+)
+from repro_torch.core.roofline import (  # noqa: F401
+    TPU_V5E,
+    ChipSpec,
+    RooflineTerms,
+    model_flops,
+    roofline_from_cost,
+)
+from repro_torch.core.op_analysis import (  # noqa: F401
+    CollectiveStats,
+    collective_stats,
 )

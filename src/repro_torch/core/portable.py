@@ -19,6 +19,12 @@ Two rules differ from the reference on purpose:
     and a build or launch that fails raises to the caller instead of
     turning into "unavailable".
 
+``kernel_call(name, fn, plain, *args)`` is where the models run a kernel
+of the registry on whichever route they chose (the hand-written kernel or
+its plain version): an observer may take the call over.  The op-cost walker
+(``core/op_cost.py``) does, because a launch through ctypes is invisible to
+a ``TorchDispatchMode``.
+
 ``__call__(tuned=True)`` reads the best tunable point for the exact call
 from the tuning cache (``core/tuning.py``), and ``time_backend`` emits the
 reference's telemetry events (``core/telemetry/``): one
@@ -44,6 +50,8 @@ __all__ = [
     "Backend",
     "BackendUnavailableError",
     "no_grad_kernel",
+    "kernel_call",
+    "call_observers",
     "TunableSpace",
     "PortableKernel",
     "KernelRegistry",
@@ -83,6 +91,24 @@ def no_grad_kernel(name: str, *tensors: Any) -> None:
             f"Ask for the 'torch' backend (attn_backend='torch', "
             f"wkv_backend='torch' or backend='torch'), or call it under "
             f"torch.no_grad()")
+
+
+#: observers of ``kernel_call``, innermost last.  Process-wide, not per
+#: thread: autograd runs a checkpointed layer's recompute on its own thread.
+call_observers: List[Callable[..., Any]] = []
+
+
+def kernel_call(name: str, fn: Callable[..., Any], plain: Callable[..., Any],
+                *args: Any, **kwargs: Any) -> Any:
+    """``fn(*args, **kwargs)``: one call of registry kernel ``name`` on the
+    tensors as the model holds them (attention: q (B, S, H, Dh), k, v
+    (B, T, Kv, Dh), q_pos, k_pos; the WKV: r, k, v, w, u, state);
+    ``plain`` is the plain PyTorch version of the same call (``fn`` itself
+    on the ``torch`` route).  The innermost observer, if any, gets
+    ``(name, fn, plain, args, kwargs)`` and returns the result instead."""
+    if call_observers:
+        return call_observers[-1](name, fn, plain, args, kwargs)
+    return fn(*args, **kwargs)
 
 
 def _runs_anywhere() -> Optional[str]:

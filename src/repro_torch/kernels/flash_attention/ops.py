@@ -34,6 +34,16 @@ def least_flops(q_pos, k_pos, heads: int, dh: int, causal: bool = True,
     return 4.0 * dh * heads * float(pairs)
 
 
+def decode_least_flops(q_pos, k_pos, heads: int, dh: int,
+                       window: int = 0) -> float:
+    """The fewest flops a decode step needs: 4 Dh (q.K and p.V) for every
+    filled cache slot its query admits, over the batch and ``heads`` query
+    heads.  ``q_pos`` (B, 1) and ``k_pos`` (B, T) as ``decode`` takes
+    them."""
+    mask = ref.admitted(q_pos, k_pos, causal=True, window=window)
+    return 4.0 * dh * heads * float(mask.sum())
+
+
 def _flops_model(q, k, v, *pos, causal=True, **kw):
     b, h, s, dh = q.shape
     t = k.shape[2]

@@ -58,7 +58,8 @@ import repro_torch.kernels.flash_attention.ops  # noqa: F401  (registers)
 from repro_torch.core import telemetry as tel
 from repro_torch.core import tuning
 from repro_torch.core.portable import (BackendUnavailableError,
-                                       PortableKernel, get_kernel)
+                                       PortableKernel, get_kernel,
+                                       kernel_call)
 from repro_torch.kernels.flash_attention.ref import attend_torch
 from repro_torch.models.chunked_attention import attend_chunked
 from repro_torch.models.common import Params, apply_rope, dense_init
@@ -252,22 +253,37 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kind = "decode" if (causal and s == 1) else "prefill"
     name = resolve_attention_backend(kind, backend, q.device)
     kernel = get_kernel(ATTN_KERNELS[kind])
-    if name == kernel.oracle:
-        _log(kind, backend=name, kernel=kernel.name, tuning="n/a", params={})
+
+    def plain(q, k, v, q_pos, k_pos, **kw):
+        """The ``torch`` route.  The kv heads are k's: ``n_kv_heads``, or a
+        head-sharded rank's share of them."""
         if takes_chunked(s, t, k_index_aligned):
             return attend_chunked(q, k, v, q_pos, k_pos,
-                                  n_kv_heads=n_kv_heads, causal=causal,
+                                  n_kv_heads=k.shape[2], causal=causal,
                                   window=window,
                                   bf16_intermediates=bf16_intermediates)
-        return attend_torch(q, k, v, q_pos, k_pos, n_kv_heads=n_kv_heads,
+        return attend_torch(q, k, v, q_pos, k_pos, n_kv_heads=k.shape[2],
                             causal=causal, window=window)
-    args, kwargs = kernel_args(kind, q, k, v, q_pos, k_pos, causal=causal,
-                               window=window,
-                               k_index_aligned=k_index_aligned)
-    params, prov = _tuned_params(kernel, *args, backend=name, **kwargs)
-    _log(kind, backend=name, kernel=kernel.name, tuning=prov, params=params)
-    out = kernel(*args, backend=name, **kwargs, **params)
-    return out if kind == "decode" else out.transpose(1, 2)
+
+    if name == kernel.oracle:
+        _log(kind, backend=name, kernel=kernel.name, tuning="n/a", params={})
+        fn = plain
+    else:
+        args, kwargs = kernel_args(kind, q, k, v, q_pos, k_pos,
+                                   causal=causal, window=window,
+                                   k_index_aligned=k_index_aligned)
+        params, prov = _tuned_params(kernel, *args, backend=name, **kwargs)
+        _log(kind, backend=name, kernel=kernel.name, tuning=prov,
+             params=params)
+
+        def fn(q, k, v, q_pos, k_pos, **kw):
+            a, kwa = kernel_args(kind, q, k, v, q_pos, k_pos, causal=causal,
+                                 window=window,
+                                 k_index_aligned=k_index_aligned)
+            out = kernel(*a, backend=name, **kwa, **params)
+            return out if kind == "decode" else out.transpose(1, 2)
+    return kernel_call(kernel.name, fn, plain, q, k, v, q_pos, k_pos,
+                       causal=causal, window=window)
 
 
 def _write_cache(cache: Dict[str, torch.Tensor], k: torch.Tensor,
@@ -288,14 +304,18 @@ def _write_cache(cache: Dict[str, torch.Tensor], k: torch.Tensor,
     cache_len = ck.shape[1]
     keep = positions >= 0
     if s == 1:
-        rows = torch.arange(b, device=positions.device)
-        slots = torch.where(keep, positions % cache_len, 0)[:, 0]
-        kk = keep[:, 0]
-        ck[rows, slots] = torch.where(kk[:, None, None], k[:, 0],
-                                      ck[rows, slots])
-        cv[rows, slots] = torch.where(kk[:, None, None], v[:, 0],
-                                      cv[rows, slots])
-        cpos[rows, slots] = torch.where(kk, positions[:, 0], cpos[rows, slots])
+        # each row's slot along dim 1, read and written by gather/scatter:
+        # no op indexes the batch dim, so a row-sharded cache stays local
+        slots = torch.where(keep, positions % cache_len, 0).long()  # (B, 1)
+        idx = slots[:, :, None, None].expand(b, 1, *k.shape[2:])
+        kk = keep[:, :, None, None]
+        ck.scatter_(1, idx, torch.where(kk, k, ck.gather(1, idx)))
+        cv.scatter_(1, idx, torch.where(kk, v, cv.gather(1, idx)))
+        # the positions through a mask over the slots: (B, T) int32 is
+        # small, and a sharding policy may split it along T
+        hit = keep & (torch.arange(cache_len, device=positions.device)
+                      == slots)
+        cpos.copy_(torch.where(hit, positions, cpos))
         return
     last = positions.amax(dim=1, keepdim=True)
     keep &= positions > last - cache_len

@@ -17,14 +17,17 @@ It trains as it serves: autograd differentiates the same einsums.
 ``stopgrad_dispatch`` detaches the one-hot masks, as the reference's lever
 does (``cfg.moe_stopgrad_dispatch``): they are built from integer
 comparisons, so no gradient reaches them either way, and the router learns
-through the gate values in ``combine``.  The reference's sharding
-``constraint`` waits for the port of ``distributed/``.
+through the gate values in ``combine``.  ``constraint(x, kind)`` is the
+reference's sharding hook, applied at its points: the dispatch and combine
+tensors and the shared experts' hidden ("gtec"), the expert buffers in and
+out ("gecd").  The identity by default; ``distributed/sharding.py`` gives
+the one that places DTensors.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +35,13 @@ import torch.nn.functional as F
 from repro_torch.models.common import Params, dense_init
 
 GROUP_SIZE = 1024  # tokens per routing group (GShard-style locality)
+
+#: a sharding constraint: (tensor, kind "gecd" | "gtec") -> tensor
+Constraint = Callable[[torch.Tensor, str], torch.Tensor]
+
+
+def no_constraint(x: torch.Tensor, kind: str) -> torch.Tensor:
+    return x
 
 
 def moe_init(gen: torch.Generator, d: int, d_ff: int, n_experts: int,
@@ -75,15 +85,15 @@ def bank_ffn(bank: Params, x_e: torch.Tensor, mlp_kind: str) -> torch.Tensor:
                         bank["w_down"])
 
 
-def shared_ffn(bank: Params, xt: torch.Tensor, mlp_kind: str
-               ) -> torch.Tensor:
+def shared_ffn(bank: Params, xt: torch.Tensor, mlp_kind: str,
+               constraint: Constraint = no_constraint) -> torch.Tensor:
     """The shared experts on every token of xt (G, gs, D): direct einsums
     over the (small) expert dim, summed over it."""
     up = torch.einsum("gtd,edf->gtef", xt, bank["w_up"])
     gate = (torch.einsum("gtd,edf->gtef", xt, bank["w_gate"])
             if mlp_kind == "swiglu" else None)
-    return torch.einsum("gtef,efd->gtd", _act(up, gate, mlp_kind),
-                        bank["w_down"])
+    h_sh = constraint(_act(up, gate, mlp_kind), "gtec")
+    return torch.einsum("gtef,efd->gtd", h_sh, bank["w_down"])
 
 
 def routing_group(t: int, group_size: int = GROUP_SIZE) -> int:
@@ -113,11 +123,13 @@ def top_k(probs: torch.Tensor, k: int
 
 
 def route(router: torch.Tensor, xt: torch.Tensor, *, n_experts: int,
-          k: int, capacity_factor: float, stopgrad_dispatch: bool = False
+          k: int, capacity_factor: float, stopgrad_dispatch: bool = False,
+          constraint: Constraint = no_constraint
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """xt (G, gs, D) -> (dispatch, combine (G, gs, E, C) in xt's dtype, the
     Switch aux load-balance loss, a float32 scalar).  ``stopgrad_dispatch``
-    detaches the one-hot masks."""
+    detaches the one-hot masks; ``constraint`` places dispatch and
+    combine."""
     g, gs, _ = xt.shape
     dt, dev = xt.dtype, xt.device
     probs = torch.softmax((xt @ router).float(), dim=-1)     # (G, gs, E)
@@ -141,9 +153,11 @@ def route(router: torch.Tensor, xt: torch.Tensor, *, n_experts: int,
     if stopgrad_dispatch:
         kept_mask, poh = kept_mask.detach(), poh.detach()
     # contract k without materialising (G, gs, k, E, C)
-    dispatch = torch.einsum("gtke,gtkc->gtec", kept_mask, poh)
-    combine = torch.einsum("gtke,gtkc->gtec",
-                           kept_mask * gate_vals.to(dt)[..., None], poh)
+    dispatch = constraint(torch.einsum("gtke,gtkc->gtec", kept_mask, poh),
+                          "gtec")
+    combine = constraint(
+        torch.einsum("gtke,gtkc->gtec",
+                     kept_mask * gate_vals.to(dt)[..., None], poh), "gtec")
 
     # load-balance aux loss (Switch form): E * sum_e f_e * p_e
     t = g * gs
@@ -155,7 +169,8 @@ def route(router: torch.Tensor, xt: torch.Tensor, *, n_experts: int,
 
 def moe_apply(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
               mlp_kind: str, capacity_factor: float = 1.25,
-              group_size: int = GROUP_SIZE, stopgrad_dispatch: bool = False
+              group_size: int = GROUP_SIZE, stopgrad_dispatch: bool = False,
+              constraint: Constraint = no_constraint
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), aux load-balance loss (scalar)).
 
@@ -163,7 +178,8 @@ def moe_apply(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     dispatch/combine one-hot contractions are per group, so dispatch memory
     is O(T E C_g) with C_g = ceil(group k / E cf), linear in tokens.
     Overflow tokens beyond capacity drop that expert's contribution.
-    ``stopgrad_dispatch`` detaches the routing one-hots (``route``).
+    ``stopgrad_dispatch`` detaches the routing one-hots (``route``);
+    ``constraint`` is the sharding hook (see the module's docstring).
     """
     b, s, d = x.shape
     t = b * s
@@ -171,10 +187,12 @@ def moe_apply(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     xt = x.reshape(t // gs, gs, d)
     dispatch, combine, aux = route(p["router"], xt, n_experts=n_experts,
                                    k=top_k, capacity_factor=capacity_factor,
-                                   stopgrad_dispatch=stopgrad_dispatch)
-    x_e = torch.einsum("gtec,gtd->gecd", dispatch, xt)       # (G,E,C,D)
-    y_e = bank_ffn(p["experts"], x_e, mlp_kind)
+                                   stopgrad_dispatch=stopgrad_dispatch,
+                                   constraint=constraint)
+    x_e = constraint(torch.einsum("gtec,gtd->gecd", dispatch, xt),
+                     "gecd")                                 # (G,E,C,D)
+    y_e = constraint(bank_ffn(p["experts"], x_e, mlp_kind), "gecd")
     out = torch.einsum("gtec,gecd->gtd", combine, y_e)
     if "shared" in p:
-        out = out + shared_ffn(p["shared"], xt, mlp_kind)
+        out = out + shared_ffn(p["shared"], xt, mlp_kind, constraint)
     return out.reshape(b, s, d), aux

@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 import repro_torch.kernels.rwkv6.ops  # noqa: F401  (registers rwkv6.wkv)
-from repro_torch.core.portable import BackendUnavailableError, get_kernel
+from repro_torch.core.portable import (BackendUnavailableError, get_kernel,
+                                       kernel_call)
 from repro_torch.kernels.rwkv6 import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6 import ref
 from repro_torch.models.common import (Params, apply_norm, dense_init,
@@ -146,12 +147,15 @@ def time_mix_apply(p: Params, x: torch.Tensor, n_heads: int, *,
     # (B, S, H, Dh) -> (B, H, S, Dh) views: the kernel reads them as they lie
     rf, kf, vf, lw = (a.float().movedim(2, 1) for a in (r, k, v, w_logdecay))
     u = p["u"].float()
-    if backend == "cuda":
-        y, new_state = wkv_kernel.wkv(rf, kf, vf, lw, u, state, chunk=chunk)
-    elif use_chunked and s % chunk == 0 and s > 1:
-        y, new_state = ref.wkv_chunked(rf, kf, vf, lw, u, state, chunk)
-    else:
-        y, new_state = ref.wkv_serial(rf, kf, vf, lw, u, state)
+
+    def plain(r, k, v, w, u, state, chunk):
+        if use_chunked and s % chunk == 0 and s > 1:
+            return ref.wkv_chunked(r, k, v, w, u, state, chunk)
+        return ref.wkv_serial(r, k, v, w, u, state)
+
+    fn = wkv_kernel.wkv if backend == "cuda" else plain
+    y, new_state = kernel_call("rwkv6.wkv", fn, plain, rf, kf, vf, lw, u,
+                               state, chunk=chunk)
 
     y = y.movedim(1, 2)                                # (B, S, H, Dv)
     y = apply_norm(p["ln_x"], y.to(x.dtype), "layernorm")

@@ -43,6 +43,11 @@ A layer is one of:
 Vision-stub archs take ``patches`` (B, P, D), added to the first P token
 embeddings; audio-stub (encoder-decoder) archs take ``frames`` (B, T, D),
 or the ``memory`` that ``encode`` made of them.
+
+``hints`` (``ShardingHints``) are the reference's sharding points: the
+residual stream after every sublayer, the logits, and the MoE buffers.
+``NO_HINTS`` leaves every tensor as it is; ``distributed/sharding.py``
+gives hints that place DTensors on a device mesh.
 """
 
 from __future__ import annotations
@@ -63,6 +68,31 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (Params, apply_mlp, apply_norm,
                                        cast_tree, dense_init, embed_init,
                                        mlp_init, norm_init)
+
+
+# --------------------------------------------------------------------------
+# sharding hints (kept abstract so models never import mesh machinery)
+# --------------------------------------------------------------------------
+def _same(x: Any) -> Any:
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingHints:
+    """Optional sharding points; the identity by default."""
+
+    activation: Callable[[torch.Tensor], torch.Tensor] = _same
+    logits: Callable[[torch.Tensor], torch.Tensor] = _same
+    # ZeRO-1 lever: the compute copy of the params with the data and pod
+    # axes stripped, so the FSDP gather happens once a step
+    params_compute: Callable[[Any], Any] = _same
+    # MoE expert-parallel guidance: (G, E, C, D) expert buffers ("gecd") and
+    # (G, gs, E, C) dispatch tensors ("gtec")
+    moe_constraint: Callable[[torch.Tensor, str], torch.Tensor] = \
+        moe_mod.no_constraint
+
+
+NO_HINTS = ShardingHints()
 
 
 # --------------------------------------------------------------------------
@@ -147,8 +177,8 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, idx: int, device, *,
 
 
 def _rwkv_layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                      cache: Optional[Params],
-                      wkv_backend: Optional[str]) -> torch.Tensor:
+                      cache: Optional[Params], wkv_backend: Optional[str],
+                      hints: ShardingHints) -> torch.Tensor:
     """Time mix + channel mix; writes the state and last tokens into
     ``cache`` in place (the WKV kernel writes its state there itself)."""
     st = cache or {}
@@ -157,7 +187,7 @@ def _rwkv_layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                             bf16_mul=cfg.norm_bf16_mul), cfg.d_model // 64,
         state=st.get("wkv"), last_x=st.get("tm_last"),
         use_chunked=x.shape[1] > 1, wkv_backend=wkv_backend)
-    x = x + h
+    x = hints.activation(x + h)
     h2, cm_last = rwkv_mod.channel_mix_apply(
         p["cm"], apply_norm(p["ln_cm"], x, cfg.norm,
                             bf16_mul=cfg.norm_bf16_mul),
@@ -167,7 +197,7 @@ def _rwkv_layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
             cache["wkv"].copy_(wkv)
         cache["tm_last"].copy_(tm_last)
         cache["cm_last"].copy_(cm_last)
-    return x + h2
+    return hints.activation(x + h2)
 
 
 def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -175,16 +205,18 @@ def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 cache: Optional[Params] = None,
                 memory: Optional[torch.Tensor] = None,
                 memory_pos: Optional[torch.Tensor] = None,
-                wkv_backend: Optional[str] = None
+                wkv_backend: Optional[str] = None,
+                hints: ShardingHints = NO_HINTS
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One pre-norm layer of ``kind`` (``layer_kind``, or ``ENCODER_KIND``
     for an encoder layer, whose self-attention is not causal) -> (x, its
     MoE aux loss or None); writes ``cache`` in place.  ``memory`` (B, T, D)
     at ``memory_pos`` feeds the cross-attention of an encoder-decoder's
     decoder layer.  ``wkv_backend`` picks the RWKV layers' WKV
-    (``models/rwkv.py::resolve_wkv_backend``)."""
+    (``models/rwkv.py::resolve_wkv_backend``); ``hints`` place the residual
+    stream after each sublayer and the MoE buffers."""
     if kind["rwkv"]:
-        return _rwkv_layer_apply(p, x, cfg, cache, wkv_backend), None
+        return _rwkv_layer_apply(p, x, cfg, cache, wkv_backend, hints), None
     norm = dict(kind=cfg.norm, bf16_mul=cfg.norm_bf16_mul)
     h = apply_norm(p["ln1"], x, **norm)
     a_out, _ = attn.attention_apply(
@@ -205,7 +237,7 @@ def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
         if cache is not None:
             cache["ssm"].copy_(ssm_state)
             cache["conv"].copy_(conv_state)
-    x = x + a_out
+    x = hints.activation(x + a_out)
     if kind["cross"] and memory is not None:
         h = apply_norm(p["ln_cross"], x, **norm)
         # the cross K/V are projected from the memory at every call, as the
@@ -217,15 +249,16 @@ def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
             head_dim=cfg.head_dim, positions=positions, causal=False,
             use_rope=False, memory_kv=(mk, mv), memory_pos=memory_pos,
             backend=cfg.attn_backend)
-        x = x + c_out
+        x = hints.activation(x + c_out)
     h = apply_norm(p["ln2"], x, **norm)
     if kind["moe"]:
         m_out, aux = moe_mod.moe_apply(
             p["moe"], h, n_experts=cfg.n_experts, top_k=cfg.top_k,
             mlp_kind=cfg.mlp, capacity_factor=cfg.moe_capacity_factor,
-            stopgrad_dispatch=cfg.moe_stopgrad_dispatch)
-        return x + m_out, aux
-    return x + apply_mlp(p["mlp"], h, cfg.mlp), None
+            stopgrad_dispatch=cfg.moe_stopgrad_dispatch,
+            constraint=hints.moe_constraint)
+        return hints.activation(x + m_out), aux
+    return hints.activation(x + apply_mlp(p["mlp"], h, cfg.mlp)), None
 
 
 # --------------------------------------------------------------------------
@@ -355,7 +388,8 @@ def _run_layers(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 positions: torch.Tensor, caches: Optional[Params] = None,
                 memory: Optional[torch.Tensor] = None,
                 memory_pos: Optional[torch.Tensor] = None,
-                wkv_backend: Optional[str] = None, remat: bool = False
+                wkv_backend: Optional[str] = None,
+                hints: ShardingHints = NO_HINTS, remat: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Execute the layer plan; each layer writes its cache view in place.
     ``remat`` recomputes each layer in the backward pass.  Returns (x, the
@@ -375,7 +409,8 @@ def _run_layers(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             seg_i += 1
         for idx, lp, c in layers:       # homogeneous within a segment
             kwargs = dict(positions=positions, cache=c, memory=memory,
-                          memory_pos=memory_pos, wkv_backend=wkv_backend)
+                          memory_pos=memory_pos, wkv_backend=wkv_backend,
+                          hints=hints)
             if remat:
                 x, a = torch.utils.checkpoint.checkpoint(
                     _layer, lp, x, cfg, layer_kind(cfg, idx),
@@ -387,7 +422,8 @@ def _run_layers(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return x, aux
 
 
-def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+           hints: ShardingHints = NO_HINTS
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whisper-style encoder over stub frame embeddings (B, T, D) ->
     (memory (B, T, D), its positions (B, T) int32)."""
@@ -398,7 +434,7 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor
     x = frames.to(cdt) + _sinusoidal(pos, cfg.d_model).to(cdt)
     enc = params["encoder"]
     for lp in enc["layers"]:
-        x, _ = _layer(lp, x, cfg, ENCODER_KIND, positions=pos)
+        x, _ = _layer(lp, x, cfg, ENCODER_KIND, positions=pos, hints=hints)
     return apply_norm(enc["final_norm"], x, cfg.norm,
                       bf16_mul=cfg.norm_bf16_mul), pos
 
@@ -411,7 +447,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             memory: Optional[torch.Tensor] = None, last_only: bool = False,
             lengths: Optional[torch.Tensor] = None,
             attn_backend: Optional[str] = None,
-            wkv_backend: Optional[str] = None, remat: bool = False
+            wkv_backend: Optional[str] = None, remat: bool = False,
+            hints: ShardingHints = NO_HINTS
             ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V), caches, aux).
 
@@ -427,7 +464,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``attn_backend`` overrides ``cfg.attn_backend`` for this call,
     ``wkv_backend`` picks the RWKV layers' WKV
     (``models/rwkv.py::resolve_wkv_backend``).  ``remat`` recomputes each
-    decoder layer in the backward pass (training).  Padded vocab columns
+    decoder layer in the backward pass (training).  ``hints`` place the
+    residual stream and the logits (``ShardingHints``).  Padded vocab columns
     get -1e9.  ``aux`` is the MoE layers' summed load-balance loss (float32;
     0 without MoE layers).
     """
@@ -448,6 +486,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         x[:, :patches.shape[1]] += patches.to(cdt)
     if not cfg.use_rope and not cfg.rwkv:
         x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
+    x = hints.activation(x)
 
     memory_pos = None
     if cfg.is_encoder_decoder:
@@ -455,7 +494,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             if frames is None:
                 raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
                                  f"`frames` or `memory`")
-            memory, memory_pos = encode(params, cfg, frames)
+            memory, memory_pos = encode(params, cfg, frames, hints)
         else:
             t = memory.shape[1]
             memory_pos = torch.arange(t, dtype=torch.int32,
@@ -466,13 +505,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     x, aux = _run_layers(params, x, cfg, positions=positions, caches=caches,
                          memory=memory, memory_pos=memory_pos,
-                         wkv_backend=wkv_backend, remat=remat)
+                         wkv_backend=wkv_backend, hints=hints, remat=remat)
     x = apply_norm(params["final_norm"], x, cfg.norm,
                    bf16_mul=cfg.norm_bf16_mul)
     if last_only:
         x = x[:, -1:]
     unembed = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    logits = x @ unembed.to(cdt)
+    logits = hints.logits(x @ unembed.to(cdt))
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=logits.device) \
             >= cfg.vocab_size

@@ -22,7 +22,12 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
     """
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    # the target's logit as a masked sum over the vocab, not a gather: the
+    # same bits (one term and exact zeros), and a vocab-sharded DTensor
+    # sums it locally, where its gather rule fails
+    vocab = torch.arange(lf.shape[-1], dtype=torch.int32, device=lf.device)
+    is_gold = vocab == targets.long()[..., None]
+    gold = lf.masked_fill(~is_gold, 0.0).sum(dim=-1)
     nll = lse - gold
     zl = z_loss * torch.square(lse)
     per_tok = nll + zl
@@ -33,7 +38,11 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = (per_tok * mask).sum() / denom
     with torch.no_grad():
-        hit = (lf.argmax(dim=-1) == targets).float()
+        # argmax as the first index that holds the max: two reductions a
+        # vocab-sharded DTensor combines with small all-reduces
+        top = lf.amax(dim=-1, keepdim=True)
+        first = torch.where(lf == top, vocab, lf.shape[-1]).amin(dim=-1)
+        hit = (first == targets).float()
         acc = (hit * mask).sum() / denom
     return loss, {"nll": (nll * mask).sum() / denom, "accuracy": acc,
                   "z_loss": (zl * mask).sum() / denom}

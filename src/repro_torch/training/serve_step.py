@@ -12,7 +12,8 @@ the prefill.
 backends of every call (``models/attention.py::resolve_attention_backend``,
 ``models/rwkv.py::resolve_wkv_backend``); None means the default for the
 tensors' device.  RWKV has no position mask: ``generate`` takes prompts of
-one length, as the reference's does.
+one length, as the reference's does.  ``hints``
+(``models/transformer.py::ShardingHints``) reach every ``forward``.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import (Params, encode, forward,
-                                            init_caches)
+from repro_torch.models.transformer import (NO_HINTS, Params, ShardingHints,
+                                            encode, forward, init_caches)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -31,7 +32,8 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             frames: Optional[torch.Tensor] = None,
             patches: Optional[torch.Tensor] = None,
             attn_backend: Optional[str] = None,
-            wkv_backend: Optional[str] = None
+            wkv_backend: Optional[str] = None,
+            hints: ShardingHints = NO_HINTS
             ) -> Tuple[torch.Tensor, Params, Optional[torch.Tensor]]:
     """Process the prompt into fresh caches.  Returns (last_logits, caches,
     memory): ``memory`` is the encoder's output for an encoder-decoder
@@ -45,12 +47,12 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     caches = init_caches(cfg, tokens.shape[0], cache_len, tokens.device)
     memory = None
     if cfg.is_encoder_decoder and frames is not None:
-        memory, _ = encode(params, cfg, frames)   # else forward raises
+        memory, _ = encode(params, cfg, frames, hints)  # else forward raises
     logits, caches, _ = forward(params, cfg, tokens, caches=caches,
                                 patches=patches, memory=memory,
                                 last_only=True, lengths=lengths,
                                 attn_backend=attn_backend,
-                                wkv_backend=wkv_backend)
+                                wkv_backend=wkv_backend, hints=hints)
     return logits[:, -1], caches, memory
 
 
@@ -58,7 +60,8 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, caches: Params, *,
                 memory: Optional[torch.Tensor] = None,
                 attn_backend: Optional[str] = None,
-                wkv_backend: Optional[str] = None
+                wkv_backend: Optional[str] = None,
+                hints: ShardingHints = NO_HINTS
                 ) -> Tuple[torch.Tensor, Params]:
     """One token for every sequence.  tokens/positions (B, 1); the caches
     are updated in place and returned.  ``memory``: ``prefill``'s, for an
@@ -66,7 +69,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     logits, caches, _ = forward(params, cfg, tokens, positions=positions,
                                 caches=caches, memory=memory,
                                 attn_backend=attn_backend,
-                                wkv_backend=wkv_backend)
+                                wkv_backend=wkv_backend, hints=hints)
     return logits[:, -1], caches
 
 
@@ -106,13 +109,14 @@ def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor, *,
              frames: Optional[torch.Tensor] = None,
              patches: Optional[torch.Tensor] = None,
              attn_backend: Optional[str] = None,
-             wkv_backend: Optional[str] = None) -> torch.Tensor:
+             wkv_backend: Optional[str] = None,
+             hints: ShardingHints = NO_HINTS) -> torch.Tensor:
     """Greedy/temperature generation loop: prompt (B, S) -> (B, new)."""
     b, s = prompt.shape
     last, caches, memory = prefill(params, cfg, prompt, cache_len=cache_len,
                                    frames=frames, patches=patches,
                                    attn_backend=attn_backend,
-                                   wkv_backend=wkv_backend)
+                                   wkv_backend=wkv_backend, hints=hints)
     tok = sample(last, generator, temperature)
     out = [tok]
     for i in range(1, max_new_tokens):
@@ -121,7 +125,7 @@ def generate(params: Params, cfg: ModelConfig, prompt: torch.Tensor, *,
         logits, caches = decode_step(params, cfg, tok[:, None], pos, caches,
                                      memory=memory,
                                      attn_backend=attn_backend,
-                                     wkv_backend=wkv_backend)
+                                     wkv_backend=wkv_backend, hints=hints)
         tok = sample(logits, generator, temperature)
         out.append(tok)
     return torch.stack(out, dim=1)

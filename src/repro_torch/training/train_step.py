@@ -9,7 +9,9 @@ routes: ``forward`` gets ``attn_backend="torch"`` and ``wkv_backend=
 and its chunked path, the jnp ``wkv_chunked``), not a fallback.  The
 hand-written kernels have no backward and refuse tensors that require grad
 (``REPRO_ATTN_BACKEND=cuda`` still overrides the attention route, and then
-the step raises).  Sharding hints wait for the port of ``distributed/``.
+the step raises).  ``hints`` (``models/transformer.py::ShardingHints``)
+reach the model, and ``hints.params_compute`` places the compute copy of the
+parameters once a step, as the reference's do.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import cast_tree
-from repro_torch.models.transformer import forward
+from repro_torch.models.transformer import NO_HINTS, ShardingHints, forward
 from repro_torch.optim import adamw, compression
 from repro_torch.optim.adamw import leaves, unflatten
 from repro_torch.training.losses import softmax_xent
@@ -49,12 +51,13 @@ def make_train_state(params: Any, tcfg: TrainConfig) -> Dict[str, Any]:
 
 
 def loss_fn(params: Any, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            tcfg: TrainConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            tcfg: TrainConfig, hints: ShardingHints = NO_HINTS
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss + moe_aux_weight * aux, metrics) of one batch."""
     logits, _, aux = forward(
         params, cfg, batch["tokens"], frames=batch.get("frames"),
         patches=batch.get("patches"), remat=tcfg.remat,
-        attn_backend="torch", wkv_backend="torch")
+        attn_backend="torch", wkv_backend="torch", hints=hints)
     loss, metrics = softmax_xent(logits, batch["targets"],
                                  batch.get("mask"), z_loss=tcfg.z_loss)
     total = loss + tcfg.moe_aux_weight * aux
@@ -78,15 +81,15 @@ def _split_microbatches(batch: Dict[str, torch.Tensor],
 
 
 def _grads(params: Any, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-           tcfg: TrainConfig) -> Tuple[List[torch.Tensor],
-                                       Dict[str, torch.Tensor]]:
+           tcfg: TrainConfig, hints: ShardingHints = NO_HINTS
+           ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     """(the gradients of ``loss_fn`` with respect to the leaves of
     ``params``, in ``leaves``' order; the metrics, detached)."""
     flat = leaves(params)
     leaf_params = unflatten(params, [p.detach().requires_grad_()
                                      for p in flat])
     with torch.enable_grad():
-        total, metrics = loss_fn(leaf_params, cfg, batch, tcfg)
+        total, metrics = loss_fn(leaf_params, cfg, batch, tcfg, hints)
         grads = torch.autograd.grad(total, leaves(leaf_params),
                                     allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
@@ -95,7 +98,8 @@ def _grads(params: Any, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor], *,
-               cfg: ModelConfig, tcfg: TrainConfig
+               cfg: ModelConfig, tcfg: TrainConfig,
+               hints: ShardingHints = NO_HINTS
                ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
     """One optimizer step over ``batch`` (the global batch on axis 0).
 
@@ -109,27 +113,32 @@ def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor], *,
         # one cast a step, hoisted out of the microbatch loop; the
         # gradients are those of the cast copy, in the compute dtype, as
         # the reference's are
-        compute_params = cast_tree(params, cfg.cdtype())
+        compute_params = hints.params_compute(
+            cast_tree(params, cfg.cdtype()))
     else:
         compute_params = params
 
     if tcfg.microbatches > 1:
-        g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # placed like the parameters (a DTensor's accumulator is one)
+        g_acc = [torch.zeros_like(p, dtype=torch.float32)
                  for p in leaves(params)]
         m_acc = {k: torch.zeros((), dtype=torch.float32,
                                 device=g_acc[0].device) for k in METRICS}
         for mb in _split_microbatches(batch, tcfg.microbatches):
-            grads, metrics = _grads(compute_params, cfg, mb, tcfg)
+            # a microbatch's rows go back to the batch's sharding (the
+            # identity on plain tensors)
+            mb = {k: hints.activation(v) for k, v in mb.items()}
+            grads, metrics = _grads(compute_params, cfg, mb, tcfg, hints)
             for a, g in zip(g_acc, grads):
                 a.add_(g.float())
             del grads
             for k in METRICS:
-                m_acc[k] += metrics[k]
+                m_acc[k] = m_acc[k] + metrics[k]
         inv = 1.0 / tcfg.microbatches
         flat_g = [g.mul_(inv) for g in g_acc]
         metrics = {k: v * inv for k, v in m_acc.items()}
     else:
-        flat_g, metrics = _grads(compute_params, cfg, batch, tcfg)
+        flat_g, metrics = _grads(compute_params, cfg, batch, tcfg, hints)
     grads = unflatten(params, flat_g)
 
     if tcfg.compress_pod_grads:

@@ -608,17 +608,29 @@ def test_torch_route_records_no_tuning(monkeypatch):
     assert A.dispatch_records() == []
 
 
-@pytest.mark.parametrize("module", ["portable", "tuning", "metrics"])
+#: the port's module of each reference module that ``repro.core`` exports
+#: from, and the port's name for each reference name that says XLA
+CORE_MODULES = {"portable": "portable", "tuning": "tuning",
+                "metrics": "metrics", "roofline": "roofline",
+                "hlo_analysis": "op_analysis"}
+COUNTERPARTS = {"roofline_from_compiled": "roofline_from_cost",
+                "parse_collective_bytes": "collective_stats"}
+
+
+@pytest.mark.parametrize("module", list(CORE_MODULES))
 def test_core_exports_the_references_names_of_the_ported_modules(module):
     """``repro_torch.core`` re-exports every name that ``repro.core``
-    re-exports from the modules the port has (the roofline and HLO names
-    come with their modules)."""
+    re-exports from each module, from the port's module of it; a name that
+    says XLA has its counterpart, listed in ``COUNTERPARTS``, and no other
+    name is exempt."""
     import repro.core as jax_core
     import repro_torch.core as core
     theirs = {name for name in dir(jax_core)
               if getattr(getattr(jax_core, name), "__module__", None)
               == f"repro.core.{module}"}
     assert theirs
-    assert {name for name in theirs if not hasattr(core, name)} == set()
-    for name in theirs:
-        assert getattr(core, name).__module__ == f"repro_torch.core.{module}"
+    ours = {COUNTERPARTS.get(name, name) for name in theirs}
+    assert {name for name in ours if not hasattr(core, name)} == set()
+    for name in ours:
+        assert getattr(core, name).__module__ == \
+            f"repro_torch.core.{CORE_MODULES[module]}"
