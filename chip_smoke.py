@@ -271,6 +271,21 @@ and runs each hand-written kernel once per shard.
                 most 1.0 (a bound above the measured time is a wrong
                 count), and the walker's flops on each real step equal to
                 those on its meta twin.
+  13. the static auditor (``core/analysis/``): (a) every hand-written
+                registry cell's launch plans (``launch_plan`` beside each
+                wrapper), at its conformance case on the card, at the
+                declared default and at phase 1b's tuned point, plus
+                bfloat16 prefill and decode and the one-token WKV, held to
+                the launches ``torch.profiler`` records: the kernel
+                symbols in order, each one's grid and block; (b)
+                ``audit_registry`` on this host (``detect_chip()`` must
+                name ``nvidia-h100``), joined to phase 1b's tuning cache
+                and (a)'s telemetry: no finding outside the drift pass and
+                no skip in a hand-written cell; the drift pass's
+                measured/predicted ratios printed, not gated; (c)
+                ``tune(search="model")`` for stencil7 and miniBUDE at their
+                main-path shapes: at most ``MODEL_TOP_K`` points timed and
+                a valid pick, printed beside phase 1b's best point.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each record with its tuned points, their provenance and times; a science
@@ -3424,6 +3439,252 @@ def domain_phase(dev, u, coeffs, stream_args, deck, hf_inputs, measured,
     return out
 
 
+# ---- slice 15: the static auditor ------------------------------------------
+#: the hand-written kernels' symbols, as a launch plan spells them without
+#: template arguments; a profiled kernel of any other name (an ATen copy
+#: around a composite's shards) is not the plan's
+PLAN_SYMBOLS = (
+    "stencil7_kernel", "stream_kernel", "dot_kernel", "bude_pair_kernel",
+    "fasten_kernel", "pair_table_kernel", "eri_kernel", "fock_gather_kernel",
+    "flash_kernel", "flash_wgmma_kernel", "decode_kernel", "wkv_step_kernel",
+    "wkv_delta_kernel", "wkv_scan_kernel", "wkv_output_kernel")
+#: the kernels ``tune(search="model")`` runs for at their main-path shape
+MODEL_SEARCH = ("stencil7", "minibude.fasten")
+#: the registry backends that launch a hand-written kernel
+HAND_BACKENDS = ("cuda", "triton", "shard_cuda", "shard_triton")
+
+
+def kernel_symbol(name: str) -> str:
+    """A profiled kernel's name as a launch plan spells it: no return type,
+    no anonymous namespace, no parameter list; a Triton kernel's name
+    without a specialisation suffix (``stream_kernel_0d1d2d``)."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[len("void "):]
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            name = name[:i]
+            break
+    base = name.split("<")[0]
+    if base not in PLAN_SYMBOLS:
+        for sym in PLAN_SYMBOLS:
+            if base.startswith(sym + "_"):
+                return sym
+    return name
+
+
+def profiled_launches(fn: Callable[[], Any], tmp: Path
+                      ) -> List[Tuple[str, Tuple[int, ...], Tuple[int, ...]]]:
+    """(symbol, grid, block) of each hand-written kernel that ``fn()``
+    launched, in launch order, from one profile's Chrome trace (Kineto's
+    kernel records carry their grid and block); other kernels (an ATen
+    copy around a composite's shards) are left out."""
+    with profiling(host=False) as prof:
+        fn()
+    path = tmp / "plan_profile.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"
+                      and FILLER_KERNEL not in e.get("name", "")),
+                     key=lambda e: e["ts"])
+    return [(kernel_symbol(e["name"]), tuple(e["args"]["grid"]),
+             tuple(e["args"]["block"])) for e in kernels
+            if kernel_symbol(e["name"]).split("<")[0] in PLAN_SYMBOLS]
+
+
+def hold_plans(calls, tmp: Path, tries: int = 3) -> int:
+    """Hold each call's plan to the profiler's launches: every call once
+    (builds and Triton compiles stay out of the profile), then all of them
+    in one profile, its launches cut into each call's in turn.  A profile
+    that lost records (``profiling``) is taken again.  Returns the
+    launches held."""
+    for _, _, fn, args, call in calls:
+        fn(*args, **call)
+    torch.cuda.synchronize()
+    plans = [plan for _, plan, _, _, _ in calls]
+    want = [launch for plan in plans for launch in plan]
+    for _ in range(tries):
+        got = profiled_launches(
+            lambda: [fn(*args, **call) for _, _, fn, args, call in calls],
+            tmp)
+        if got == want:
+            return len(want)
+    at = 0
+    for label, plan, _, _, _ in calls:
+        if got[at:at + len(plan)] != plan:
+            fail(f"{label}: the plan says {plan}, the profiler recorded "
+                 f"{got[at:at + len(plan)]}")
+        at += len(plan)
+    fail(f"the profiler recorded {len(got)} launches, the plans {len(want)}")
+
+
+def plan_points(k, backend: str, args, kwargs,
+                tuned: Dict[str, Dict[str, Any]]) -> Dict[str, Dict]:
+    """The default call and phase 1b's tuned point of ``k`` (its tunables
+    that ``backend``'s space has), where a valid point of the space at
+    these inputs agrees with it."""
+    points = {"default": {}}
+    best = next((t["params"] for t in tuned.values()
+                 if t["record"] == k.name), None)
+    space = k.tunable_space(backend)
+    if best and space is not None:
+        point = {n: v for n, v in best.items() if n in space.params}
+        valid = space.valid_points(*args, **kwargs)
+        if point and any(all(p[n] == v for n, v in point.items())
+                         for p in valid):
+            points["tuned"] = point
+    return points
+
+
+def audit_phase(dev, card: str, tuned: Dict[str, Dict[str, Any]],
+                tuned_path: Path, tmp: Path,
+                main_args: Dict[str, Tuple[Tuple[Any, ...], Dict[str, Any]]]
+                ) -> Dict[str, Any]:
+    """Phase 13: the static auditor (``core/analysis/``) on the card's host.
+
+    (a) every hand-written cell's launch plans against the launches the
+    profiler records, at its conformance case on the card, at the declared
+    default and at phase 1b's tuned point: the kernel symbols, in order,
+    and each one's grid and block must equal the plan's (the one check
+    that the Python plans follow the C launchers' arithmetic), each cell
+    timed by ``time_backend`` with telemetry on; (b) ``audit_registry``,
+    joined to phase 1b's tuning cache and (a)'s telemetry: no finding that
+    is not waived outside the drift pass, no skip in a hand-written cell,
+    the chip ``nvidia-h100``; the drift pass's ratios and findings
+    printed, not gated;
+    (c) ``tune(search="model")`` for stencil7 and miniBUDE at their
+    main-path shapes: at most ``MODEL_TOP_K`` points timed, the pick a
+    valid point, its time printed beside phase 1b's best point."""
+    from repro_torch.core import analysis
+    from repro_torch.core.analysis import trace as plan_trace
+    from repro_torch.core.portable import registry
+    chip = detect_chip()
+    if chip.name != "nvidia-h100":
+        fail(f"detect_chip() names {chip.name}, not nvidia-h100")
+    cells = []
+    for kernel, backend in analysis.audit_pairs():
+        if backend in HAND_BACKENDS:
+            args, kwargs = conformance.case_tensors(kernel, dev)
+            cells.append((kernel, backend, "", get_kernel(kernel).backend(
+                backend).fn, args, kwargs))
+    # the plans the float32 cases do not reach: bfloat16 prefill (the
+    # wgmma kernel's grid) and decode, and the one-token WKV with a state
+    for name in ATTN:
+        args, kwargs = conformance.case_tensors(name, dev)
+        cells.append((name, "cuda", " bfloat16",
+                      get_kernel(name).backend("cuda").fn, tuple(
+                          a.to(torch.bfloat16) if a.is_floating_point()
+                          else a for a in args), kwargs))
+    r, k_, v, lw, u = conformance.case_tensors(RWKV, dev)[0]
+    state = torch.zeros(r.shape[0], r.shape[1], r.shape[3], r.shape[3],
+                        device=dev)
+    cells.append((RWKV, "cuda", " S = 1", wkv_kernel.wkv, tuple(
+        x[:, :, :1] for x in (r, k_, v, lw)) + (u, state), {}))
+    calls = []
+    for kernel, backend, what, fn, args, kwargs in cells:
+        k = registry.get(kernel)
+        for label, point in plan_points(k, backend, args, kwargs,
+                                        tuned).items():
+            call = {**kwargs, **point}
+            plan = [(launch.symbol, tuple(launch.grid), tuple(launch.block))
+                    for _, launch in plan_trace.trace(fn, args,
+                                                      call).launches]
+            label = (f"plan {kernel}[{backend}]{what} {label} "
+                     f"{fmt_point(point) or '(declared defaults)'}")
+            print(f"{label}: " + ", ".join(f"{sym} grid {g} block {b}"
+                                           for sym, g, b in plan))
+            calls.append((label, plan, fn, args, call))
+    t0 = time.perf_counter()
+    held = hold_plans(calls, tmp)
+    print(f"launch plans: {held} launches of {len(calls)} calls held to the "
+          f"profiler's symbols, grids and blocks on {card} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    rec = tel.configure("on")
+    try:
+        for kernel, backend, what, fn, args, kwargs in cells:
+            if not what:
+                registry.get(kernel).time_backend(*args, backend=backend,
+                                                  iters=5, **kwargs)
+        jsonl = tmp / "audit_telemetry.jsonl"
+        tel.write_jsonl(str(jsonl), rec)
+    finally:
+        tel.configure("off")
+
+    t0 = time.perf_counter()
+    report = analysis.audit_registry(tuning_cache=str(tuned_path),
+                                     telemetry_trace=str(jsonl))
+    audit_s = time.perf_counter() - t0
+    s = report["summary"]
+    print(f"static audit on {card}: chip {report['chip']}, {s['cells']} "
+          f"cells, {s['audited']} audited, {s['findings']} finding(s), "
+          f"{s['waived']} waived, {s['skips']} skip(s), {audit_s:.1f} s")
+    gated = [f for f in report["findings"] if f["pass_name"] != "drift"]
+    for f in report["findings"]:
+        print(f"  FINDING {f['kernel']}[{f['backend']}] {f['pass_name']}/"
+              f"{f['code']}: {f['message']}"
+              + (" (not gated)" if f["pass_name"] == "drift" else ""))
+    if gated:
+        fail(f"the static audit has {len(gated)} finding(s) outside the "
+             f"drift pass")
+    hand_skips = [x for x in report["skips"]
+                  if x["backend"] in HAND_BACKENDS]
+    if hand_skips:
+        fail(f"the static audit skipped hand-written cells: {hand_skips}")
+    drift = report["drift"]
+    print(f"drift on {card}: {drift['joined']} of {drift['measurements']} "
+          f"measurements joined, calibration {drift['calibration']}, band "
+          f"{drift['band']}x (not gated)")
+    for r in drift["records"]:
+        if r["backend"] in HAND_BACKENDS:
+            print(f"  drift {r['kernel']}[{r['backend']}] {r['source']} "
+                  f"{r['shape'][:60]} {r['params']}: measured "
+                  f"{r['seconds'] * 1e3:.5f} ms, predicted "
+                  f"{(r['predicted_s'] or 0) * 1e3:.5f} ms, ratio "
+                  f"{r.get('ratio')}, relative {r.get('relative')}")
+    for f in report["waived"]:
+        print(f"  waived {f['kernel']}[{f['backend']}] {f['code']}: "
+              f"{f['waive_reason']}")
+
+    searched = {}
+    for name in MODEL_SEARCH:
+        k = get_kernel(name)
+        args, kwargs = main_args[name]
+        cache = tuning.TuningCache(tmp / f"model_{name}.json")
+        t0 = time.perf_counter()
+        r = tuning.tune(k, *args, backend=k.native, cache=cache,
+                        search="model", iters=ITERS, **kwargs)
+        valid = k.tunable_space(k.native).valid_points(*args, **kwargs)
+        if r.skipped is not None or r.params not in valid:
+            fail(f"tune(search='model') {name}: skipped ({r.skipped}) or "
+                 f"picked {r.params}, not a valid point")
+        if len(r.swept) > tuning.MODEL_TOP_K:
+            fail(f"tune(search='model') {name} timed {len(r.swept)} points, "
+                 f"more than {tuning.MODEL_TOP_K}")
+        best = tuned[name]
+        print(f"model search {name}[{k.native}] on {card}: "
+              f"{len(r.swept)} of {len(valid)} points timed "
+              f"({time.perf_counter() - t0:.1f} s): "
+              + ", ".join(f"{fmt_point(p)} {sec * 1e3:.4f} ms"
+                          for p, sec in r.swept)
+              + f"; pick {fmt_point(r.params)} {r.seconds * 1e3:.4f} ms "
+              f"against phase 1b's best ({best['search']}) "
+              f"{fmt_point(best['params'])} {best['ms']:.4f} ms by time_call "
+              f"({best['graph_ms']:.4f} as a graph; ranked by "
+              f"{best['timer']})")
+        searched[name] = {"params": r.params, "ms": r.seconds * 1e3,
+                          "timed": len(r.swept), "points": len(valid),
+                          "phase_1b": best["params"],
+                          "phase_1b_search": best["search"],
+                          "phase_1b_ms": best["ms"]}
+    return {"launches_held": held, "findings": len(gated),
+            "drift_findings": s["findings"] - len(gated),
+            "drift": {"joined": drift["joined"],
+                      "calibration": drift["calibration"]},
+            "model_search": searched, "audit_s": audit_s}
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0,
@@ -3890,6 +4151,15 @@ def main() -> None:
     t0 = time.perf_counter()
     cells = dryrun_phase(card)
     new_s["roofline"] += time.perf_counter() - t0
+    # ---- 13. the static auditor ------------------------------------------
+    t0 = time.perf_counter()
+    free_card()
+    audited = audit_phase(
+        dev, card, tuned, tuned_path, tmp,
+        {"stencil7": ((u, *coeffs), {}), "minibude.fasten": (deck, {})})
+    new_s["static audit"] = time.perf_counter() - t0
+    print(f"static audit: {json.dumps(audited)}")
+    print(f"static audit phase: {new_s['static audit']:.1f} s")
     print("roofline shares on " + card + ": " + ", ".join(
         f"{k} {v['share']:.2%} ({v['terms']['dominant']})"
         for k, v in roofline.items()))

@@ -25,6 +25,15 @@ its plain version): an observer may take the call over.  The op-cost walker
 (``core/op_cost.py``) does, because a launch through ctypes is invisible to
 a ``TorchDispatchMode``.
 
+``launch_observed(name, device, plan, *args, **params)`` is where each
+hand-written wrapper stops before it builds or launches its kernel: with a
+launch observer on (the static auditor, ``core/analysis/``), the observer
+gets the wrapper's launch plan, ``plan(*args, **params)``, one ``Launch``
+record per CUDA or Triton kernel the call would launch, in launch order;
+the wrapper then returns its outputs unlaunched (``meta`` tensors, when it
+was called on ``meta`` twins).  Nothing falls back: the hook never runs the
+plain version.
+
 ``__call__(tuned=True)`` reads the best tunable point for the exact call
 from the tuning cache (``core/tuning.py``), and ``time_backend`` emits the
 reference's telemetry events (``core/telemetry/``): one
@@ -60,6 +69,10 @@ __all__ = [
     "get_kernel",
     "cuda_probe",
     "triton_probe",
+    "Tile",
+    "Launch",
+    "launch_observers",
+    "launch_observed",
     "time_call",
     "time_graph",
 ]
@@ -109,6 +122,73 @@ def kernel_call(name: str, fn: Callable[..., Any], plain: Callable[..., Any],
     if call_observers:
         return call_observers[-1](name, fn, plain, args, kwargs)
     return fn(*args, **kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class Tile:
+    """One buffer of a launch, as the grid sees it: the array's ``shape``
+    (elements), the ``tile`` one program reads or writes, and ``index``,
+    which maps a program id ``(x, y, z)`` (CUDA's ``blockIdx``; a Triton
+    program id is ``(pid, 0, 0)``) to the tile index it touches: a tuple
+    of ``len(shape)`` ints, a list of such tuples (a program that touches
+    several tiles), or None (none).  Tile indices count in tiles: index
+    ``(i, j)`` of a ``(ti, tj)`` tile is elements ``[i ti, (i + 1) ti)`` x
+    ``[j tj, (j + 1) tj)``, clipped at the array's end.  A plan's stand-in
+    for the reference's Pallas ``BlockSpec``."""
+
+    name: str
+    shape: Tuple[int, ...]
+    tile: Tuple[int, ...]
+    index: Callable[[int, int, int], Any]
+    itemsize: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One kernel launch of a hand-written wrapper's call, as its launcher
+    computes it: the kernel's symbol (as nvcc demangles it, template
+    arguments included; a Triton kernel's function name), its grid and
+    block (x, y, z), its dynamic shared memory in bytes, its output and
+    input buffers, the output indices that are declared accumulators (a
+    tile that several programs write on purpose), the dtype it accumulates
+    in, and the operations it does on this call's shapes, with their
+    dtype."""
+
+    symbol: str
+    grid: Tuple[int, int, int]
+    block: Tuple[int, int, int]
+    outputs: Tuple[Tile, ...]
+    inputs: Tuple[Tile, ...] = ()
+    smem: int = 0
+    accumulators: Tuple[int, ...] = ()
+    accum_dtype: str = "float32"
+    flops: float = 0.0
+    flops_dtype: str = "float32"
+
+
+#: observers of hand-written launches, innermost last (``launch_observed``)
+launch_observers: List[Callable[[str, List[Launch]], None]] = []
+
+
+def launch_observed(name: str, device: torch.device,
+                    plan: Callable[..., List[Launch]], *args: Any,
+                    **params: Any) -> bool:
+    """A hand-written wrapper's last step before it builds or launches.
+
+    With a launch observer on, the innermost one gets ``(name,
+    plan(*args, **params))`` and this returns True: the wrapper returns its
+    outputs without building or launching anything (and counts no launch).
+    With none, it returns False and the wrapper launches as it always has;
+    a ``meta`` device, which has nothing to launch on, raises
+    ``ValueError``."""
+    if launch_observers:
+        launch_observers[-1](name, plan(*args, **params))
+        return True
+    if device.type == "meta":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors: meta tensors "
+                         f"cannot launch a kernel, they only hand its "
+                         f"launch plan to the static auditor")
+    return False
 
 
 def _runs_anywhere() -> Optional[str]:
@@ -207,7 +287,12 @@ class PortableKernel:
 
     ``native`` names the hand-written backend, the default for CUDA tensors.
     ``flops_model`` / ``bytes_model`` take the same arguments as the kernel
-    and return the paper-defined operation/byte counts.
+    and return the paper-defined operation/byte counts.  ``accum_dtype`` is
+    the dtype every reduction of the kernel accumulates in, or wider (the
+    static auditor's dtypes pass); ``traceable=False`` marks a kernel whose
+    backends are host-side driver loops (the serving engine), which the
+    auditor leaves out and conformance still runs (the reference's
+    ``jaxpr_traceable``).
     """
 
     name: str
@@ -218,8 +303,10 @@ class PortableKernel:
     bytes_model: Optional[Callable[..., float]] = None
     doc: str = ""
     tunables: Dict[str, TunableSpace] = dataclasses.field(default_factory=dict)
-    #: backend name -> static performance expectations (metadata only until
-    #: the static auditor is ported)
+    accum_dtype: str = "float32"
+    traceable: bool = True
+    #: backend name -> static performance expectations (see
+    #: ``declare_roofline_contract``); audited by ``core/analysis/cost.py``
     roofline_contracts: Dict[str, Dict[str, Any]] = dataclasses.field(
         default_factory=dict)
     #: backend name -> declared communication contract (see
@@ -295,12 +382,12 @@ class PortableKernel:
                               accumulator_outputs: Sequence[int] = ()) -> None:
         """Declare grid-coverage metadata for one or more backends.
 
-        ``accumulator_outputs`` lists output indices whose block is *meant*
+        ``accumulator_outputs`` lists output indices whose tile is *meant*
         to be revisited across a launch grid (a sequential accumulator).
-        Any other revisited output block is a write race, and an unvisited
-        one a hole: findings of the grid-coverage pass (ROADMAP item 15).
-        No kernel of the port revisits an output block, so none declares
-        one.
+        Any other revisited output tile is a write race, and an unvisited
+        one a hole: findings of the grid pass (``core/analysis/grid.py``),
+        which reads the outputs of every launch of a backend's plans by
+        these indices, and each launch's own ``Launch.accumulators``.
         """
         names = [backends] if isinstance(backends, str) else list(backends)
         for n in names:
@@ -654,13 +741,15 @@ def register_kernel(name: str, *, oracle: str = "torch",
                     native: Optional[str] = None,
                     flops_model: Optional[Callable[..., float]] = None,
                     bytes_model: Optional[Callable[..., float]] = None,
-                    doc: str = "") -> PortableKernel:
+                    doc: str = "", accum_dtype: str = "float32",
+                    traceable: bool = True) -> PortableKernel:
     """Create-or-get a PortableKernel in the global registry."""
     if name in registry:
         return registry.get(name)
     return registry.register(PortableKernel(
         name=name, oracle=oracle, native=native, flops_model=flops_model,
-        bytes_model=bytes_model, doc=doc))
+        bytes_model=bytes_model, doc=doc, accum_dtype=accum_dtype,
+        traceable=traceable))
 
 
 def get_kernel(name: str) -> PortableKernel:

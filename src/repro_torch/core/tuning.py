@@ -24,10 +24,12 @@ This module supplies that measurement spine:
 Grids past ``COORD_THRESHOLD`` points switch (under ``search="auto"``) to a
 budgeted coordinate descent: sweep one parameter at a time from a
 deterministic start, repeat until a full pass stops improving or the timing
-budget runs out.  Partial results (``"coordinate"``) are cached with their
-provenance and are **never** served to a caller whose sweep would be
-exhaustive.  ``search="model"`` (the reference's cost-model prior) waits
-for the port of ``core/analysis/`` (ROADMAP item 15) and raises.
+budget runs out.  ``search="model"`` ranks the valid points by the static
+cost model (``core/analysis/cost.py``: each point's launch plans, traced on
+``meta``, nothing built) and times only the top ``MODEL_TOP_K`` after
+dominance pruning.  Partial results (``"coordinate"``, ``"model"``) are
+cached with their provenance and are **never** served to a caller whose
+sweep would be exhaustive.
 
 Where the port differs from the reference:
 
@@ -93,6 +95,7 @@ __all__ = [
     "platform",
     "device_count",
     "COORD_THRESHOLD",
+    "MODEL_TOP_K",
     "GRAPH_TIMER_BELOW_S",
     "PARTIAL_SEARCHES",
 ]
@@ -103,6 +106,9 @@ CACHE_SCHEMA = "repro_torch.tuning/v1"
 #: grids larger than this switch from exhaustive sweep to coordinate descent
 #: under ``search="auto"``
 COORD_THRESHOLD = 16
+
+#: points ``search="model"`` times, best predicted first (the reference's)
+MODEL_TOP_K = 4
 
 #: a sweep whose first point reads under this many seconds by ``time_call``
 #: is ranked by CUDA-graph device time instead.  One registry call takes
@@ -465,7 +471,7 @@ class TuningResult:
     swept: List[Tuple[Dict[str, Any], float]]  # every timed (point, seconds)
     cached: bool                      # True = served from the cache, no timing
     skipped: Optional[str] = None     # reason this backend was not tuned
-    search: str = "exhaustive"        # "exhaustive" | "coordinate"
+    search: str = "exhaustive"        # "exhaustive" | "coordinate" | "model"
     timer: Optional[str] = None       # "events" | "graph" | "host"
 
 
@@ -542,20 +548,17 @@ def tune(kernel: PortableKernel, *args: Any, backend: str,
     ``search`` picks the strategy: ``"exhaustive"`` times every valid
     point; ``"coordinate"`` runs a budgeted coordinate descent
     (``budget`` distinct points, default twice the summed per-parameter
-    grid lengths); ``"auto"`` (default) uses coordinate descent only when
-    the valid grid exceeds ``COORD_THRESHOLD`` points.  ``"model"`` needs
-    the static cost model, which the port does not have yet, and raises.
-    Partial (coordinate) results are cached with their provenance and are
-    never served to a caller whose own sweep would be exhaustive.
-    ``max_points`` bounds the work of every strategy, and a sweep it cut
-    short is never persisted.
+    grid lengths); ``"model"`` ranks the valid points by the static cost
+    model (``analysis.cost.rank_points``), drops the dominated ones
+    (``prune_dominated``) and times at most ``budget`` of the rest
+    (default ``MODEL_TOP_K``), best predicted first; ``"auto"`` (default)
+    uses coordinate descent only when the valid grid exceeds
+    ``COORD_THRESHOLD`` points.  Partial (coordinate, model) results are
+    cached with their provenance and are never served to a caller whose
+    own sweep would be exhaustive.  ``max_points`` bounds the work of
+    every strategy, and a sweep it cut short is never persisted.
     """
-    if search == "model":
-        raise ValueError(
-            "search='model' ranks points by the static cost model of "
-            "core/analysis/, which the port does not have yet (ROADMAP "
-            "item 15); use 'auto', 'exhaustive' or 'coordinate'")
-    if search not in ("auto", "exhaustive", "coordinate"):
+    if search not in ("auto", "exhaustive", "coordinate", "model"):
         raise ValueError(f"unknown search mode {search!r}")
     b = kernel.backends.get(backend)
     if b is None:
@@ -586,16 +589,18 @@ def tune(kernel: PortableKernel, *args: Any, backend: str,
                             skipped="no tunable space declared")
 
     points = space.valid_points(*args, **kwargs)
+    model = search == "model"
     coordinate = (search == "coordinate"
                   or (search == "auto" and len(points) > COORD_THRESHOLD))
+    partial = coordinate or model
 
     if cache is not None:
         hit = cache.get(key)
         if hit is not None:
             hit_search = hit.get("search", "exhaustive")
-            # a partial (coordinate) entry must not satisfy an exhaustive
-            # request — fall through and run the full sweep
-            if not (hit_search in PARTIAL_SEARCHES and not coordinate):
+            # a partial (coordinate/model) entry must not satisfy an
+            # exhaustive request — fall through and run the full sweep
+            if not (hit_search in PARTIAL_SEARCHES and not partial):
                 tel.counter("tuning.cache.hit", proc="tuning")
                 return TuningResult(
                     kernel=kernel.name, backend=backend,
@@ -608,14 +613,15 @@ def tune(kernel: PortableKernel, *args: Any, backend: str,
     # strategies: exhaustive sweeps drop the grid tail, coordinate descent
     # caps its timing budget — and no truncated result may persist
     truncated = max_points is not None and len(points) > max_points
-    if truncated and not coordinate:
+    if truncated and not partial:
         points = points[:max_points]
     if not points:
         return _skip(kernel, backend,
                      "no valid tunable point for these inputs")
 
     swept: List[Tuple[Dict[str, Any], float]] = []
-    mode = "coordinate" if coordinate else "exhaustive"
+    mode = "model" if model else "coordinate" if coordinate \
+        else "exhaustive"
     # one clock for the whole sweep, chosen by its first timed point
     timer: List[Optional[str]] = [None if on_cuda else "host"]
 
@@ -643,7 +649,24 @@ def tune(kernel: PortableKernel, *args: Any, backend: str,
 
     with tel.span("tuning.tune", proc="tuning", kernel=kernel.name,
                   backend=backend, search=mode, points=len(points)):
-        if coordinate:
+        if model:
+            from repro_torch.core.analysis import cost as _cost
+            ranked = _cost.rank_points(kernel, backend, points, args, kwargs)
+            keep = _cost.prune_dominated(ranked)
+            top_k = budget if budget is not None else MODEL_TOP_K
+            if max_points is not None:
+                top_k = min(top_k, max_points)
+            candidates = [r["params"] for r in keep[:max(1, top_k)]]
+            tel.instant("tuning.model_prior", proc="tuning",
+                        kernel=kernel.name, backend=backend,
+                        points=len(points), pruned=len(points) - len(keep),
+                        timed=len(candidates))
+            best_params, best_secs = None, float("inf")
+            for point in candidates:
+                secs = time_point(point)
+                if secs < best_secs:
+                    best_secs, best_params = secs, point
+        elif coordinate:
             if budget is None:
                 budget = 2 * sum(len(v) for v in space.params.values())
             if max_points is not None:
@@ -668,8 +691,8 @@ def tune(kernel: PortableKernel, *args: Any, backend: str,
                           cached=False, search=mode, timer=timer[0])
     # a truncated sweep (smoke lane) must not poison the cache: its key is
     # identical to the full run's, which would then inherit the partial
-    # search as if it were the tuned optimum; coordinate results persist,
-    # but carry their provenance so exhaustive callers re-search
+    # search as if it were the tuned optimum; coordinate and model results
+    # persist, but carry their provenance so exhaustive callers re-search
     if cache is not None and not truncated:
         cache.put(key, result.params, result.seconds, search=mode,
                   timer=result.timer)

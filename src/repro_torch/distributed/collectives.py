@@ -29,6 +29,10 @@ list in the same order:
 way) and each ``psum`` one to ``c["psum"]``.  This is the port's
 counterpart of the reference's jaxpr collective census, which its comm
 contracts are audited against (``core/portable.py::audit_comm_contract``).
+Inside ``with observing(fn):`` each collective also calls ``fn(kind, n,
+moved, received)`` with the blocks it moved and the tensors it gave the
+shards: the static auditor (``core/analysis/trace.py``) costs the bytes and
+follows what the received data feeds.
 Copies between devices go through ``Tensor.copy_``, which orders them
 after the source's stream and before the destination's with CUDA events,
 never a host sync.
@@ -44,7 +48,7 @@ import numpy as np
 import torch
 
 __all__ = ["ring_perm", "shift", "halo_exchange", "halo_exchange_nd", "psum",
-           "counting", "COLLECTIVES"]
+           "counting", "observing", "COLLECTIVES"]
 
 #: the collectives a counter counts (the reference's contract keys)
 COLLECTIVES = ("ppermute", "psum", "all_gather")
@@ -68,9 +72,25 @@ def counting() -> Iterator[Dict[str, int]]:
         stack.remove(counts)
 
 
-def _count(kind: str, n: int = 1) -> None:
+@contextlib.contextmanager
+def observing(fn: Any) -> Iterator[None]:
+    """Call ``fn(kind, n, moved, received)`` for each collective this
+    thread issues inside the block: ``n`` as ``counting`` counts it, the
+    blocks it moved between shards and the tensors the shards received."""
+    observers = _local.__dict__.setdefault("observers", [])
+    observers.append(fn)
+    try:
+        yield
+    finally:
+        observers.remove(fn)
+
+
+def _count(kind: str, n: int = 1, moved: Sequence[torch.Tensor] = (),
+           received: Sequence[torch.Tensor] = ()) -> None:
     for counts in getattr(_local, "stack", ()):
         counts[kind] += n
+    for fn in getattr(_local, "observers", ()):
+        fn(kind, n, moved, received)
 
 
 def ring_perm(n: int, offset: int = 1,
@@ -109,13 +129,18 @@ def _permute(xs: Sequence[torch.Tensor], offset: int,
             if o is None else o for i, o in enumerate(out)]
 
 
+def _moved(xs: Sequence[torch.Tensor], offset: int,
+           wrap: bool) -> List[torch.Tensor]:
+    return [xs[src] for src, _ in ring_perm(len(xs), offset, wrap)]
+
+
 def shift(xs: Sequence[torch.Tensor], offset: int = 1,
           wrap: bool = False) -> List[torch.Tensor]:
     """Each shard receives the block of the shard ``offset`` positions
     *before* it, on its own device (zeros at the open ends when
     ``wrap=False``).  The blocks have one shape, as ``ppermute``'s do."""
     out = _permute(xs, offset, wrap)
-    _count("ppermute")
+    _count("ppermute", moved=_moved(xs, offset, wrap), received=out)
     return out
 
 
@@ -182,14 +207,17 @@ def halo_exchange_nd(grid: Any, *, axes: Sequence[int] = (0, 1),
         rings = np.moveaxis(blocks, m, -1).reshape(-1, shape[m])
         prev_rings = np.moveaxis(prev, m, -1)
         next_rings = np.moveaxis(nxt, m, -1)
+        moved, received = [], []
         for r, ring in enumerate(rings):
             leading, trailing = _slabs(list(ring), axis, halo)
             at = np.unravel_index(r, prev_rings.shape[:-1])
-            for k, (p, q) in enumerate(zip(_permute(trailing, 1, wrap),
-                                           _permute(leading, -1, wrap))):
+            got = (_permute(trailing, 1, wrap), _permute(leading, -1, wrap))
+            for k, (p, q) in enumerate(zip(*got)):
                 prev_rings[at + (k,)] = p
                 next_rings[at + (k,)] = q
-        _count("ppermute", 2)
+            moved += _moved(trailing, 1, wrap) + _moved(leading, -1, wrap)
+            received += got[0] + got[1]
+        _count("ppermute", 2, moved=moved, received=received)
         out.append((prev.tolist(), nxt.tolist()))
     return tuple(out)
 
@@ -201,5 +229,7 @@ def psum(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     total = xs[0].clone()
     for x in xs[1:]:
         total += x.to(total.device, non_blocking=True)
-    _count("psum")
-    return [total] + [_copy_to(total, x) for x in xs[1:]]
+    out = [total] + [_copy_to(total, x) for x in xs[1:]]
+    _count("psum", moved=xs, received=out)
+    return out
+

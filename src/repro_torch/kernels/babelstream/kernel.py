@@ -29,13 +29,18 @@ its kernel launches in ``<wrapper>.launches`` (``dot`` launches two per
 call).  Triton is imported, and the kernels built, at the first launch,
 which also installs the telemetry's Triton compile hook
 (``core/telemetry/cudamon.py``).
+``stream_plan`` and ``dot_plan`` mirror the launch grids below for the
+static auditor, which calls the wrappers on ``meta`` tensors.
 (No ``from __future__ import annotations`` here: the ``tl.constexpr``
 parameter annotations stay objects, as Triton expects.)
 """
 
+from typing import Tuple
+
 import torch
 
-from repro_torch.core.portable import no_grad_kernel
+from repro_torch.core.portable import (Launch, Tile, launch_observed,
+                                       no_grad_kernel)
 from repro_torch.core.telemetry import cudamon
 from repro_torch.kernels.babelstream import ref
 
@@ -46,6 +51,8 @@ BLOCK = 4096
 NUM_WARPS = 8
 
 _OP_CODE = {"copy": 0, "mul": 1, "add": 2, "triad": 3}
+#: flops an element of each op
+_OP_FLOPS = {"copy": 0, "mul": 1, "add": 1, "triad": 2}
 _DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
 
 # bound at the first launch by _kernels(); the @triton.jit bodies below
@@ -101,6 +108,52 @@ def _kernels():
     return _STREAM, _DOT
 
 
+def _by_program(p, y, z):
+    return (p,)
+
+
+def stream_plan(op: str, x: torch.Tensor, y: torch.Tensor, *,
+                block: int = BLOCK, num_warps: int = NUM_WARPS):
+    """The one launch of a stream op: a program a ``block`` of elements,
+    reading ``x`` (and ``y`` for add and triad) and writing ``out``."""
+    n = x.numel()
+    ins = [Tile("x", (n,), (block,), _by_program, x.element_size())]
+    if op in ("add", "triad"):
+        ins.append(Tile("y", (n,), (block,), _by_program, y.element_size()))
+    return [Launch("stream_kernel", (-(-n // block), 1, 1),
+                   (32 * num_warps, 1, 1),
+                   outputs=(Tile("out", (n,), (block,), _by_program,
+                                 x.element_size()),),
+                   inputs=tuple(ins), flops=float(_OP_FLOPS[op] * n),
+                   flops_dtype=str(x.dtype)[len("torch."):])]
+
+
+def dot_plan(a: torch.Tensor, b: torch.Tensor, *, block: int = BLOCK,
+             num_warps: int = NUM_WARPS):
+    """The two launches of ``dot``: a program a ``block`` of elements,
+    each writing its own partial, then one program over the partials.
+    Nothing is revisited, so neither declares an accumulator."""
+    n = a.numel()
+    programs = -(-n // block)
+    acc = str(ref.accumulator_dtype(a.dtype))[len("torch."):]
+    acc_size = ref.accumulator_dtype(a.dtype).itemsize
+    threads = (32 * num_warps, 1, 1)
+    partials = Tile("partials", (programs,), (1,), _by_program, acc_size)
+    return [
+        Launch("dot_kernel", (programs, 1, 1), threads, outputs=(partials,),
+               inputs=(Tile("a", (n,), (block,), _by_program,
+                             a.element_size()),
+                       Tile("b", (n,), (block,), _by_program,
+                            b.element_size())),
+               accum_dtype=acc, flops=2.0 * n, flops_dtype=acc),
+        Launch("dot_kernel", (1, 1, 1), threads,
+               outputs=(Tile("out", (1,), (1,), _by_program,
+                             a.element_size()),),
+               inputs=(Tile("partials", (programs,), (programs,),
+                            _by_program, acc_size),),
+               accum_dtype=acc, flops=float(programs), flops_dtype=acc)]
+
+
 def _uses_kernel(name: str, *arrays: torch.Tensor) -> bool:
     """Check the inputs; True for CUDA tensors (launch the kernel), False
     for CPU tensors (run the plain version)."""
@@ -113,7 +166,7 @@ def _uses_kernel(name: str, *arrays: torch.Tensor) -> bool:
             raise ValueError(f"{name}: inputs differ in device or dtype")
     if a.device.type == "cpu":
         return False
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name} runs on CUDA or CPU tensors, not {a.device}")
     if a.dtype not in _DTYPES:
         raise TypeError(f"{name} kernel takes {_DTYPES}, not {a.dtype}")
@@ -123,15 +176,20 @@ def _uses_kernel(name: str, *arrays: torch.Tensor) -> bool:
 
 
 def _stream(op: str, x: torch.Tensor, y: torch.Tensor, scalar: float,
-            block: int, num_warps: int) -> torch.Tensor:
-    kernel, _ = _kernels()
+            block: int, num_warps: int) -> Tuple[torch.Tensor, bool]:
+    """``op``'s output, and whether it launched (False when the static
+    auditor took its plan)."""
     out = torch.empty_like(x)
+    if launch_observed(f"babelstream.{op}", x.device, stream_plan, op, x, y,
+                       block=block, num_warps=num_warps):
+        return out, False
+    kernel, _ = _kernels()
     n = x.numel()
     with torch.cuda.device(x.device):
         kernel[(triton.cdiv(n, block),)](
             x, y, out, n, OP=_OP_CODE[op], SCALAR=float(scalar), BLOCK=block,
             num_warps=num_warps)
-    return out
+    return out, True
 
 
 def copy(a: torch.Tensor, *, block: int = BLOCK,
@@ -140,8 +198,8 @@ def copy(a: torch.Tensor, *, block: int = BLOCK,
     no_grad_kernel("babelstream.copy", a)
     if not _uses_kernel("babelstream.copy", a):
         return ref.copy(a)
-    out = _stream("copy", a, a, 0.0, block, num_warps)
-    copy.launches += 1
+    out, launched = _stream("copy", a, a, 0.0, block, num_warps)
+    copy.launches += launched
     return out
 
 
@@ -151,8 +209,8 @@ def mul(c: torch.Tensor, scalar: float = ref.START_SCALAR, *,
     no_grad_kernel("babelstream.mul", c)
     if not _uses_kernel("babelstream.mul", c):
         return ref.mul(c, scalar)
-    out = _stream("mul", c, c, scalar, block, num_warps)
-    mul.launches += 1
+    out, launched = _stream("mul", c, c, scalar, block, num_warps)
+    mul.launches += launched
     return out
 
 
@@ -162,8 +220,8 @@ def add(a: torch.Tensor, b: torch.Tensor, *, block: int = BLOCK,
     no_grad_kernel("babelstream.add", a, b)
     if not _uses_kernel("babelstream.add", a, b):
         return ref.add(a, b)
-    out = _stream("add", a, b, 0.0, block, num_warps)
-    add.launches += 1
+    out, launched = _stream("add", a, b, 0.0, block, num_warps)
+    add.launches += launched
     return out
 
 
@@ -173,8 +231,8 @@ def triad(b: torch.Tensor, c: torch.Tensor, scalar: float = ref.START_SCALAR,
     no_grad_kernel("babelstream.triad", b, c)
     if not _uses_kernel("babelstream.triad", b, c):
         return ref.triad(b, c, scalar)
-    out = _stream("triad", b, c, scalar, block, num_warps)
-    triad.launches += 1
+    out, launched = _stream("triad", b, c, scalar, block, num_warps)
+    triad.launches += launched
     return out
 
 
@@ -185,13 +243,16 @@ def dot(a: torch.Tensor, b: torch.Tensor, *, block: int = BLOCK,
     no_grad_kernel("babelstream.dot", a, b)
     if not _uses_kernel("babelstream.dot", a, b):
         return ref.dot(a, b)
-    _, kernel = _kernels()
     acc = ref.accumulator_dtype(a.dtype)
-    acc_tl = tl.float64 if acc == torch.float64 else tl.float32
     n = a.numel()
-    programs = triton.cdiv(n, block)
+    programs = -(-n // block)
     partials = torch.empty(programs, dtype=acc, device=a.device)
     out = torch.empty(1, dtype=a.dtype, device=a.device)
+    if launch_observed("babelstream.dot", a.device, dot_plan, a, b,
+                       block=block, num_warps=num_warps):
+        return out[0]
+    _, kernel = _kernels()
+    acc_tl = tl.float64 if acc == torch.float64 else tl.float32
     with torch.cuda.device(a.device):
         kernel[(programs,)](a, b, partials, n, block, HAS_Y=True,
                             ACC=acc_tl, BLOCK=block, num_warps=num_warps)

@@ -14,6 +14,10 @@ stream.  CPU tensors run the plain versions in ``ref.py``; CUDA tensors
 launch the kernel, or raise.  ``flash.launches`` and ``decode.launches``
 count the calls that launched a kernel; each call is one CUDA launch.
 
+``flash_plan`` and ``decode_plan`` mirror the launchers' arithmetic
+(``launch_flash``, ``launch_flash_wgmma``, ``launch_decode``) for the
+static auditor, which calls the wrappers on ``meta`` tensors.
+
 ``decode`` keeps the port's one piece of state that persists across calls:
 an int32 arrival counter per (row, kv head) on each device (``_arrivals``),
 0 between calls, with which the decode kernel's last block of a pair finds
@@ -30,7 +34,8 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from repro_torch import _build
-from repro_torch.core.portable import no_grad_kernel
+from repro_torch.core.portable import (Launch, Tile, launch_observed,
+                                       no_grad_kernel)
 from repro_torch.kernels.flash_attention import ref
 
 #: declared tunables of the ``cuda`` backends (ops.py registers them): the
@@ -56,6 +61,11 @@ HEAD_DIMS = (16, 32, 64, 128)
 #: query heads per kv head the decode kernel holds (its register tile)
 MAX_GROUP = 16
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: csrc's blocks: the float32 prefill's threads, the decode's, and the
+#: cache splits a decode block takes
+FLASH_THREADS, DECODE_THREADS, SPLITS_PER_BLOCK = 256, 128, 2
+_CUDA_TYPES = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
 
 #: the decode kernel's arrival counters, one buffer a device index
 _ARRIVALS: Dict[int, torch.Tensor] = {}
@@ -96,7 +106,7 @@ def _one_device(name: str, tensors: Sequence[Optional[torch.Tensor]]):
         raise ValueError(f"{name} takes tensors on one device, got "
                          f"{sorted(map(str, devices))}")
     device = devices.pop()
-    if device.type not in ("cpu", "cuda"):
+    if device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name} runs on CUDA or CPU tensors, not {device}")
     return device
 
@@ -125,6 +135,150 @@ def _aligned16(tensors: Sequence[torch.Tensor]) -> bool:
     time."""
     return not any(x.data_ptr() % 16 or any(
         st * x.element_size() % 16 for st in x.stride()[:3]) for x in tensors)
+
+
+def _key_tiles(q0: int, rows: int, t: int, bk: int, causal: bool,
+               window: int) -> range:
+    """The key tiles of ``bk`` slots that a tile of queries ``[q0, q0 +
+    rows)`` reads, with query i at position i and key slot j at j (the
+    op-cost walker's reading of positions it cannot see): up to its last
+    query when causal, from its first query's window start."""
+    hi = min(q0 + rows, t) if causal else t
+    lo = max(q0 - window + 1, 0) if window else 0
+    return range(lo // bk, -(-hi // bk)) if hi > lo else range(0)
+
+
+def flash_plan(q, k, v, q_pos=None, k_pos=None, *, causal: bool = True,
+               window: int = 0, k_index_aligned: bool = True,
+               bq: Optional[int] = None, bk: Optional[int] = None):
+    """The one launch of ``flash``: a block a (q tile, head, row), which
+    writes its (bq, Dh) tile of the output and reads its q tile and the key
+    and value tiles its queries admit.  float32 runs ``flash_kernel`` on a
+    (q tiles, heads, rows) grid of 256 threads; bfloat16 the wgmma kernel
+    on (heads, rows, q tiles), two warpgroups a 128-row tile.  Rows that
+    admit no key are written by the block of their group's first head for
+    every head of the group, each such row by that block alone (the other
+    heads' blocks skip it), which the output's tiles leave out."""
+    from repro_torch.core.op_cost import _index_pairs
+    b, h, s, dh = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    if q.numel() == 0:
+        return []
+    bq = FLASH_DEFAULT[q.dtype][0] if bq is None else bq
+    bk = FLASH_DEFAULT[q.dtype][1] if bk is None else bk
+    size, group = q.element_size(), h // kv
+    if q.dtype == torch.float32:
+        ri, cj = bq // 16, bk // 16
+        symbol = f"flash_kernel<{dh}, {ri}, {cj}>"
+        grid, block = (-(-s // bq), h, b), (FLASH_THREADS, 1, 1)
+        smem = (16 * ri * (dh + 1) + 16 * cj * (dh + 1)
+                + 16 * ri * (16 * cj + 1)) * 4 + (16 * ri + 16 * cj) * 4
+
+        def pid(x, y, z):
+            return x, y, z                       # q tile, head, row
+    else:
+        nb = 1 if dh < 64 else dh // 64
+        symbol = f"flash_wgmma_kernel<{dh}, {bq}, {bk}>"
+        grid, block = (h, b, -(-s // bq)), (2 * bq, 1, 1)
+        smem = (1024 + bq * 128 * nb + 2 * (2 * bk * 128 * nb + bk * 4) + 16
+                + 4 * -(-t // bk))
+
+        def pid(x, y, z):
+            return z, x, y
+
+    def out_tile(*xyz):
+        qt, hh, bb = pid(*xyz)
+        return (bb, hh, qt, 0)
+
+    def key_tiles(*xyz):
+        qt, hh, bb = pid(*xyz)
+        return bb, hh, _key_tiles(qt * bq, bq, t, bk, causal, window)
+
+    def kv_tiles(*xyz):
+        bb, hh, tiles = key_tiles(*xyz)
+        return [(bb, hh // group, j, 0) for j in tiles]
+
+    def q_pos_tile(*xyz):
+        qt, _, bb = pid(*xyz)
+        return (bb, qt)
+
+    def k_pos_tiles(*xyz):
+        bb, _, tiles = key_tiles(*xyz)
+        return [(bb, j) for j in tiles]
+
+    ins = [Tile("q", q.shape, (1, 1, bq, dh), out_tile, size),
+           Tile("k", k.shape, (1, 1, bk, dh), kv_tiles, size),
+           Tile("v", v.shape, (1, 1, bk, dh), kv_tiles, size)]
+    if q_pos is not None:
+        ins += [Tile("q_pos", (b, s), (1, bq), q_pos_tile, 4),
+                Tile("k_pos", (b, t), (1, bk), k_pos_tiles, 4)]
+    return [Launch(symbol, grid, block,
+                   outputs=(Tile("out", q.shape, (1, 1, bq, dh), out_tile,
+                                 size),),
+                   inputs=tuple(ins), smem=smem,
+                   flops=4.0 * dh * h * b * _index_pairs(s, t, causal,
+                                                         window),
+                   flops_dtype=str(q.dtype)[len("torch."):])]
+
+
+def decode_plan(q, k, v, q_pos, k_pos, *, window: int = 0, bkv: int = BKV):
+    """The one launch of ``decode``: a block a (kv head, row, z) that takes
+    the cache splits z, z + Z, ... (Z = ceil(nsplit / 2)) and writes each
+    split's partial (m, l and the G heads' sums) once.  The block that
+    arrives last for its (row, kv head) combines the partials and writes
+    the G heads' output; which block that is depends on the run, so the
+    plan gives the write, and the read of the partials, to block Z - 1:
+    each output tile is written once, by one block of its pair."""
+    b, _, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    if t == 0 or b == 0:
+        return []
+    nsplit = -(-t // bkv)
+    g = h // kv
+    zs = -(-nsplit // SPLITS_PER_BLOCK)
+    maxg = 4 if g <= 4 else 8 if g <= 8 else 16
+    size = q.element_size()
+
+    def splits(x, y, z):
+        return range(z, nsplit, zs)
+
+    def heads(x, y, z):
+        return (y, 0, x, 0)
+
+    def combine(tile):
+        return lambda x, y, z: tile(x, y) if z == zs - 1 else None
+
+    part = (b, kv, nsplit, g)
+    ins = (Tile("q", q.shape, (1, 1, g, dh), heads, size),
+           Tile("k", k.shape, (1, bkv, 1, dh),
+                lambda x, y, z: [(y, sp, x, 0) for sp in splits(x, y, z)],
+                size),
+           Tile("v", v.shape, (1, bkv, 1, dh),
+                lambda x, y, z: [(y, sp, x, 0) for sp in splits(x, y, z)],
+                size),
+           Tile("q_pos", (b, 1), (1, 1), lambda x, y, z: (y, 0), 4),
+           Tile("k_pos", (b, t), (1, bkv),
+                lambda x, y, z: [(y, sp) for sp in splits(x, y, z)], 4),
+           Tile("partials (combine)", part, (1, 1, nsplit, g),
+                combine(lambda x, y: (y, x, 0, 0))),
+           Tile("sums (combine)", part + (dh,), (1, 1, nsplit, g, dh),
+                combine(lambda x, y: (y, x, 0, 0, 0))))
+
+    def partial(x, y, z):
+        return [(y, x, sp, 0) for sp in splits(x, y, z)]
+
+    return [Launch(
+        f"decode_kernel<{_CUDA_TYPES[q.dtype]}, {dh}, {maxg}>",
+        (kv, b, zs), (DECODE_THREADS, 1, 1),
+        outputs=(Tile("out", q.shape, (1, 1, g, dh), combine(
+                     lambda x, y: (y, 0, x, 0)), size),
+                 Tile("m", part, (1, 1, 1, g), partial),
+                 Tile("l", part, (1, 1, 1, g), partial),
+                 Tile("sums", part + (dh,), (1, 1, 1, g, dh),
+                      lambda x, y, z: [(y, x, sp, 0, 0)
+                                       for sp in splits(x, y, z)])),
+        inputs=ins, smem=(g * bkv + DECODE_THREADS * 8 * g) * 4 + bkv,
+        flops=4.0 * dh * h * b * (min(t, window) if window else t))]
 
 
 def _positions(pos: torch.Tensor) -> torch.Tensor:
@@ -187,6 +341,10 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if q_pos is not None:
         q_pos, k_pos = _positions(q_pos), _positions(k_pos)
+    if launch_observed("attention.flash", device, flash_plan, q, k, v, q_pos,
+                       k_pos, causal=causal, window=window,
+                       k_index_aligned=k_index_aligned, bq=bq, bk=bk):
+        return out
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     lib = _library()
@@ -280,6 +438,9 @@ def decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if t == 0 or b == 0:
         return out.zero_()
+    if launch_observed("attention.decode", device, decode_plan, q, k, v,
+                       q_pos, k_pos, window=window, bkv=bkv):
+        return out
     nsplit = -(-t // bkv)
     g = h // kv
     part = torch.empty(2 * b * kv * nsplit * g, dtype=torch.float32,

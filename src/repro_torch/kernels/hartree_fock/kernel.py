@@ -19,7 +19,10 @@ The kernels are compiled by ``nvcc`` at the first launch
 stream.  CPU tensors run the plain versions in ``ref.py``; CUDA tensors
 launch the kernels, or raise.  ``twoel.launches`` and
 ``twoel_slab.launches`` count the builds each wrapper makes: one per call,
-of three kernel launches for each slab it runs.
+of three kernel launches for each slab it runs.  ``build_plan`` (one slab)
+and ``launch_plan`` (``twoel``'s slabs) mirror the launcher's arithmetic
+(``csrc/hartree_fock.cu``, ``twoel_f32``) for the static auditor, which
+calls the wrappers on ``meta`` tensors.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch import _build
-from repro_torch.core.portable import no_grad_kernel
+from repro_torch.core.portable import (Launch, Tile, launch_observed,
+                                       no_grad_kernel)
 from repro_torch.kernels.hartree_fock import ref
 
 #: the declared tunable of the ``cuda`` backend (ops.py registers it): the
@@ -44,6 +48,8 @@ TEAM = 128
 TILE = 32
 #: the basis sizes the kernel is instantiated for (the reference's sto_basis)
 NGAUSS = (3, 6)
+#: every kernel's block (csrc's kThreads)
+THREADS = 256
 #: the largest integral scratch a slab build allocates: 4 N^3 nl bytes
 #: (1.07 GB for the whole of N = 128); a full build fits it up to N = 215
 MAX_SCRATCH_BYTES = 8 << 30
@@ -122,6 +128,102 @@ def _plan(natoms: int, l0: int, nl: int, device: torch.device):
     return t, ((t.i << 16) | t.j).to(device=device, dtype=torch.int32)
 
 
+def _eri_images(i: int, j: int, k: int, l: int, l0: int, nl: int):
+    """The slots of E that ``eri_kernel`` writes (ij|kl) to: its images
+    whose last index lies in the slab, as E indices (a, b, c, d - l0)."""
+    out = []
+    for a, b, c, d in ((i, j, k, l), (j, i, k, l), (i, j, l, k),
+                       (j, i, l, k), (k, l, i, j), (l, k, i, j),
+                       (k, l, j, i), (l, k, j, i)):
+        if l0 <= d < l0 + nl:
+            out.append((a, b, c, d - l0))
+    return out
+
+
+def build_plan(positions4, density, basis, l0, nl, *, team: int = TEAM):
+    """The three launches of one build over the slab ``[l0, l0 + nl)``:
+    the pair tables, a thread a (pair, primitive pair) row; the integrals,
+    a block a bra x ket tile of ``TILE`` pairs whose bra tile is not below
+    its ket tile, each integral written to every image in E whose last
+    index is in the slab (so every slot of E exactly once); the gather, a
+    team of threads an F[i, j], reading E[i, j, :, :] and E[i, :, j, :]."""
+    from repro_torch.kernels.hartree_fock import ops
+    n, g = positions4.shape[0], basis.ngauss
+    g2 = g * g
+    t = tiling(n, l0, nl)
+    m, s_ = t.m, t.s
+    pi, pj = t.i.tolist(), t.j.tolist()
+    work = max(m * g2, g2 * g2)
+
+    def first(x, y, z):
+        return (0, 0) if x == 0 else None
+
+    def rows(limit):
+        return lambda x, y, z: (x, 0) if x * THREADS < limit else None
+
+    def eri_writes(ub, vb, z):
+        if ub < vb:
+            return None                  # below the diagonal: returns
+        out = set()
+        for u in range(ub * TILE, min((ub + 1) * TILE, m)):
+            for v in range(vb * TILE, min((vb + 1) * TILE, s_, u + 1)):
+                out.update(_eri_images(pi[u], pj[u], pi[v], pj[v], l0, nl))
+        return sorted(out)
+
+    per_block = THREADS // team
+
+    def fock_tiles(x, y, z):
+        return (x,)
+
+    def e_rows(x, y, z):
+        outs = range(x * per_block, min((x + 1) * per_block, n * n))
+        return [(o // n, o % n, 0, 0) for o in outs]
+
+    def e_columns(x, y, z):
+        outs = range(x * per_block, min((x + 1) * per_block, n * n))
+        return [(o // n, 0, o % n, 0) for o in outs]
+
+    table = Tile("table", (m * g2, 4), (THREADS, 4), rows(m * g2))
+    eri = (n, n, n, nl)
+    smem = 16 * g2 * TILE + 8 * g2 * g2
+    return [
+        Launch("pair_table_kernel", (-(-work // THREADS), 1, 1),
+               (THREADS, 1, 1),
+               outputs=(table, Tile("pp", (g2 * g2, 2), (THREADS, 2),
+                                    rows(g2 * g2))),
+               inputs=(Tile("positions4", (n, 4), (n, 4), first),
+                       Tile("basis", (2, g), (2, g), first),
+                       Tile("pairs", (m, 1), (m, 1), first)),
+               flops=float(ops.table_flops(n, g))),
+        Launch(f"eri_kernel<{g}>", (t.ubs, t.vbs, 1), (THREADS, 1, 1),
+               outputs=(Tile("E", eri, (1, 1, 1, 1), eri_writes),),
+               inputs=(Tile("table bra", (m * g2, 4), (TILE * g2, 4),
+                            lambda ub, vb, z: (ub, 0) if ub >= vb else None),
+                       Tile("table ket", (m * g2, 4), (TILE * g2, 4),
+                            lambda ub, vb, z: (vb, 0) if ub >= vb else None),
+                       Tile("pp", (g2 * g2, 2), (g2 * g2, 2),
+                            lambda ub, vb, z: (0, 0) if ub >= vb else None)),
+               smem=smem,
+               flops=float(ops.computed_integrals(n, l0, nl)
+                           * ops.TERM_FLOPS * g2 * g2)),
+        Launch("fock_gather_kernel", (-(-n * n // per_block), 1, 1),
+               (THREADS, 1, 1),
+               outputs=(Tile("fock", (n * n,), (per_block,), fock_tiles),),
+               inputs=(Tile("E rows", eri, (1, 1, n, nl), e_rows),
+                       Tile("E columns", eri, (1, n, 1, nl), e_columns),
+                       Tile("density", (n, n), (n, n), first)),
+               flops=3.0 * n * n * n * nl, flops_dtype="float64"),
+    ]
+
+
+def launch_plan(positions4, density, basis, *, team: int = TEAM):
+    """``twoel``'s launches: ``build_plan`` for each slab of
+    ``slab_plan(N)``, in order (raises where ``slab_plan`` does)."""
+    return [launch for l0, nl in slab_plan(positions4.shape[0])
+            for launch in build_plan(positions4, density, basis, l0, nl,
+                                     team=team)]
+
+
 def _check(positions4, density, basis, l0, nl):
     n = positions4.shape[0]
     if positions4.dim() != 2 or positions4.shape[1] != 4:
@@ -141,11 +243,12 @@ def _check(positions4, density, basis, l0, nl):
 
 
 def _launch(positions4, density, basis, l0, nl, team):
-    """One build over the slab (three kernel launches); the caller counts
-    it."""
+    """One build over the slab (three kernel launches): (F, whether it
+    launched; False when the static auditor took its plan).  The caller
+    counts it."""
     tensors = _check(positions4, density, basis, l0, nl)
     device = positions4.device
-    if device.type != "cuda":
+    if device.type not in ("cuda", "meta"):
         raise ValueError(f"twoel runs on CUDA or CPU tensors, not {device}")
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"the twoel kernel takes float32, not "
@@ -166,13 +269,16 @@ def _launch(positions4, density, basis, l0, nl, team):
                          f"{scratch} bytes, above the {MAX_SCRATCH_BYTES} "
                          f"byte limit; split the build into smaller slabs "
                          f"(slab_plan)")
+    fock = torch.empty((n, n), dtype=torch.float32, device=device)
+    if launch_observed("hartree_fock.twoel", device, build_plan, positions4,
+                       density, basis, l0, nl, team=team):
+        return fock, False
     t, pairs = _plan(n, l0, nl, device)
     m = t.m
     zc = torch.stack([basis.exponents, basis.coefficients])  # (2, G)
     table = torch.empty((m, g * g, 4), dtype=torch.float32, device=device)
     pp = torch.empty((g ** 4, 2), dtype=torch.float32, device=device)
     eri = torch.empty(scratch // 4, dtype=torch.float32, device=device)
-    fock = torch.empty((n, n), dtype=torch.float32, device=device)
     lib = _library()
     with torch.cuda.device(device):
         err = lib.twoel_f32(
@@ -184,7 +290,7 @@ def _launch(positions4, density, basis, l0, nl, team):
     if err:
         raise RuntimeError(f"twoel kernel launch failed: error {err} "
                            f"({lib.twoel_error_string(err).decode()})")
-    return fock
+    return fock, True
 
 
 def twoel(positions4: torch.Tensor, density: torch.Tensor, basis: ref.Basis,
@@ -199,11 +305,11 @@ def twoel(positions4: torch.Tensor, density: torch.Tensor, basis: ref.Basis,
     if positions4.device.type == "cpu":
         _check(positions4, density, basis, 0, n)
         return ref.fock_build(positions4[:, :3], density, basis)
-    fock = None
+    fock, launched = None, False
     for l0, nl in slab_plan(n):
-        part = _launch(positions4, density, basis, l0, nl, team)
+        part, launched = _launch(positions4, density, basis, l0, nl, team)
         fock = part if fock is None else fock + part
-    twoel.launches += 1
+    twoel.launches += launched
     return fock
 
 
@@ -220,8 +326,8 @@ def twoel_slab(positions4: torch.Tensor, density: torch.Tensor,
     if positions4.device.type == "cpu":
         _check(positions4, density, basis, l0, nl)
         return ref.fock_build_slab(positions4[:, :3], density, basis, l0, nl)
-    fock = _launch(positions4, density, basis, l0, nl, team)
-    twoel_slab.launches += 1
+    fock, launched = _launch(positions4, density, basis, l0, nl, team)
+    twoel_slab.launches += launched
     return fock
 
 

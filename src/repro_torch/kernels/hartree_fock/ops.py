@@ -111,4 +111,9 @@ _k.add_backend("cuda", fock_cuda, probe=cuda_probe)
 # every point is valid for every N
 _k.declare_tunables("cuda", team=K.TEAM_GRID)
 # O(N^4 G^4) integrals over O(N^2) operands: compute-bound
-_k.declare_roofline_contract(("torch", "cuda"), bound="compute")
+_k.declare_roofline_contract("torch", bound="compute")
+# the kernel's integral scratch E (4 N^3 nl bytes, written once and read
+# twice: csrc/hartree_fock.cu) grows as N^2 times the N^2 floor of
+# positions, density and F: 120x the floor at the conformance case (N = 8)
+_k.declare_roofline_contract("cuda", bound="compute",
+                             traffic_inflation_limit=256.0)

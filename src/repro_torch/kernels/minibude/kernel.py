@@ -12,7 +12,10 @@ the note at the top of ``csrc/minibude.cu``.
 The kernels are compiled by ``nvcc`` at the first launch (``repro_torch._build``)
 and called through ``ctypes`` on PyTorch's current stream.  CPU tensors run
 the plain version in ``ref.py``; CUDA tensors launch the kernels, or raise.
-``fasten.launches`` counts the calls that launched them.
+``fasten.launches`` counts the calls that launched them.  ``launch_plan``
+mirrors the launcher's arithmetic (``csrc/minibude.cu``, ``fasten_f32`` and
+``launch``) for the static auditor, which calls the wrapper on ``meta``
+tensors.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import functools
 import torch
 
 from repro_torch import _build
-from repro_torch.core.portable import no_grad_kernel
+from repro_torch.core.portable import (Launch, Tile, launch_observed,
+                                       no_grad_kernel)
 from repro_torch.kernels.minibude import ref
 
 #: declared tunables of the ``cuda`` backend (ops.py registers them): poses
@@ -41,6 +45,9 @@ PPWI, SPLIT = 4, 8
 #: refused
 MAX_TABLE_BYTES = 8 << 30
 _INT32_MAX = 2 ** 31 - 1
+#: csrc's constants: the pair kernel's block and the pair rows an energy
+#: block stages at a time
+PAIR_THREADS, STAGE = 256, 1024
 
 
 def check_deck(natpro: int, natlig: int, nposes: int) -> None:
@@ -73,6 +80,59 @@ def _library():
     return lib
 
 
+def _whole(*xyz):
+    return (0, 0)
+
+
+def launch_plan(protein_pos, protein_par, ligand_pos, ligand_par, poses, *,
+                ppwi: int = PPWI, split: int = SPLIT):
+    """The two launches of ``fasten``: the pair table, a thread a pair
+    (protein atom fastest), then the energies, a block of ``32 ppwi``
+    poses and ``split`` warps.  Every energy block reads the whole pair
+    table and the protein positions (staged through shared memory): the
+    re-reads the census counts.  The small parameter rows are read once."""
+    from repro_torch.kernels.minibude import ops
+    natpro, natlig = protein_pos.shape[0], ligand_pos.shape[0]
+    nposes = poses.shape[1]
+    if nposes == 0:
+        return []
+    pairs = natpro * natlig
+    kposes = 32 * ppwi
+    slice_ = -(-natpro // split)
+    chunk = max(1, min(slice_, STAGE // split))
+    smem = 16 * 3 * split * chunk + 4 * (12 + split) * kposes
+    table = (natlig * natpro * 2, 4)
+
+    def first(x, y, z):
+        return (0, 0) if x == 0 else None
+
+    plan = []
+    if pairs:
+        plan.append(Launch(
+            "bude_pair_kernel", (-(-pairs // PAIR_THREADS), 1, 1),
+            (PAIR_THREADS, 1, 1),
+            outputs=(Tile("table", table, (2 * PAIR_THREADS, 4),
+                          lambda x, y, z: (x, 0)),),
+            inputs=(Tile("protein_par", (natpro, 4), (natpro, 4), first),
+                    Tile("ligand_par", (natlig, 4), (natlig, 4), first)),
+            flops=float(ops.PAIR_FLOPS * pairs)))
+    plan.append(Launch(
+        f"fasten_kernel<{ppwi}>", (-(-nposes // kposes), 1, 1),
+        (32 * split, 1, 1),
+        outputs=(Tile("energies", (nposes,), (kposes,),
+                      lambda x, y, z: (x,)),),
+        inputs=(Tile("poses", (6, nposes), (6, kposes),
+                     lambda x, y, z: (0, x)),
+                Tile("table", table, table, _whole),
+                Tile("protein_pos", (natpro, 4), (natpro, 4), _whole),
+                Tile("ligand_pos", (natlig, 4), (natlig, 4), _whole)),
+        smem=smem,
+        flops=float(ops.INTERACTION_FLOPS * pairs * nposes
+                    + ops.LIGAND_FLOPS * natlig * nposes
+                    + ops.POSE_FLOPS * nposes)))
+    return plan
+
+
 def fasten(protein_pos: torch.Tensor, protein_par: torch.Tensor,
            ligand_pos: torch.Tensor, ligand_par: torch.Tensor,
            poses: torch.Tensor, *, ppwi: int = PPWI,
@@ -94,7 +154,7 @@ def fasten(protein_pos: torch.Tensor, protein_par: torch.Tensor,
                          f"{sorted(map(str, devices))}")
     if poses.device.type == "cpu":
         return ref.fasten(*deck)
-    if poses.device.type != "cuda":
+    if poses.device.type not in ("cuda", "meta"):
         raise ValueError(f"fasten runs on CUDA or CPU tensors, not "
                          f"{poses.device}")
     if any(t.dtype != torch.float32 for t in deck):
@@ -112,6 +172,9 @@ def fasten(protein_pos: torch.Tensor, protein_par: torch.Tensor,
     # the pair table, from the caching allocator on the current stream
     work = torch.empty((natlig, natpro, 8), dtype=torch.float32,
                        device=poses.device)
+    if launch_observed("minibude.fasten", poses.device, launch_plan, *deck,
+                       ppwi=ppwi, split=split):
+        return out
     lib = _library()
     with torch.cuda.device(poses.device):
         err = lib.fasten_f32(

@@ -25,6 +25,9 @@ and called through ``ctypes`` on PyTorch's current stream.  CPU tensors run
 the plain version (``ref.wkv_chunked``); CUDA tensors launch the kernel, or
 raise.  ``wkv.launches`` counts the calls that launched the kernels, not
 the CUDA launches: a call of S > 1 is three of them and counts once.
+``launch_plan`` mirrors the launcher's arithmetic (``csrc/rwkv6.cu``,
+``launch`` and ``launch_chunks``) for the static auditor, which calls the
+wrapper on ``meta`` tensors.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import _build
-from repro_torch.core.portable import no_grad_kernel
+from repro_torch.core.portable import (Launch, Tile, launch_observed,
+                                       no_grad_kernel)
 from repro_torch.kernels.rwkv6 import ref
 
 #: declared tunable of the ``cuda`` backend (ops.py registers it): the
@@ -44,6 +48,9 @@ from repro_torch.kernels.rwkv6 import ref
 CHUNK_GRID = (16, 32, 64)
 CHUNK = 64
 HEAD_DIMS = (32, 64)
+#: csrc's constants: the chunk kernels' block, the tokens of a sub-chunk,
+#: the state columns a one-token block and a scan block hold
+THREADS, SUB, SLICE, SCAN_COLS = 256, 8, 16, 32
 
 #: the ``csrc/`` sources this module loads (the tuning cache's code hash
 #: reads them: no Python name reaches a ``.cu``)
@@ -60,6 +67,97 @@ def _library():
     lib.rwkv6_error_string.argtypes = [c_int]
     lib.rwkv6_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _output_smem_floats(c: int, dh: int) -> int:
+    ns = c // SUB
+    state_over_lc = dh * dh <= 2 * dh * c - c * c
+    return (4 * dh * c + c + ns * dh + ns * (ns - 1) // 2 * dh + dh
+            + (0 if state_over_lc else dh * dh))
+
+
+def launch_plan(r, k, v, w_logdecay, u, state=None, *, chunk: int = CHUNK):
+    """The launches of ``wkv``: one token runs ``wkv_step_kernel``, a block
+    a (16 state columns, head, row) that reads and writes its Dh x 16
+    slice of the state once; more run the chunk kernels on a (chunks,
+    heads, rows) grid (each chunk's state increment into the scratch), the
+    scan on a (Dh / 32, heads, rows) grid (the chunks in order, S_c over
+    each increment, the final state out), and the output on the chunks'
+    grid again.  The flops are ``ops.least_flops``'s: the rank-one terms
+    on the increments, two a state element a chunk on the scan, the rest
+    and the chunk's strict triangle on the output."""
+    from repro_torch.kernels.rwkv6 import ops
+    b, h, s, dh = r.shape
+    bhsd = r.shape
+    least = ops.least_flops(b, h, s, dh, dh)
+    if s == 1:
+        def cols(x, y, z):
+            return (z, y, 0, x)
+
+        def row(x, y, z):
+            return (z, y, 0, 0)
+
+        state_tile = (1, 1, dh, SLICE)
+        ins = [Tile("r", bhsd, (1, 1, 1, dh), row),
+               Tile("k", bhsd, (1, 1, 1, dh), row),
+               Tile("w_logdecay", bhsd, (1, 1, 1, dh), row),
+               Tile("v", bhsd, (1, 1, 1, SLICE), cols),
+               Tile("u", (h, dh), (1, dh), lambda x, y, z: (y, 0))]
+        if state is not None:
+            ins.append(Tile("state", (b, h, dh, dh), state_tile, cols))
+        return [Launch(
+            f"wkv_step_kernel<{dh}>", (dh // SLICE, h, b),
+            (dh * SLICE // 4, 1, 1),
+            outputs=(Tile("y", bhsd, (1, 1, 1, SLICE), cols),
+                     Tile("state out", (b, h, dh, dh), state_tile, cols)),
+            inputs=tuple(ins), flops=least)]
+    n = -(-s // chunk)
+    ds, ecw = (b, h, n, dh, dh), (b, h, n, dh)
+
+    def tokens(x, y, z):
+        return (z, y, x, 0)
+
+    def increment(x, y, z):
+        return (z, y, x, 0, 0)
+
+    def scan_cols(x, y, z):
+        return (z, y, 0, 0, x)
+
+    rows = (1, 1, chunk, dh)
+    chunks = (n, h, b)
+    increments = 2.0 * b * h * s * dh * dh
+    scanned = 2.0 * b * h * n * dh * dh
+    scan_ins = [Tile("ds", ds, (1, 1, n, dh, SCAN_COLS), scan_cols),
+                Tile("ecw", ecw, (1, 1, n, dh), lambda x, y, z: (z, y, 0, 0))]
+    if state is not None:
+        scan_ins.append(Tile("state", (b, h, dh, dh), (1, 1, dh, SCAN_COLS),
+                             lambda x, y, z: (z, y, 0, x)))
+    return [
+        Launch(f"wkv_delta_kernel<{chunk}, {dh}>", chunks, (THREADS, 1, 1),
+               outputs=(Tile("ds", ds, (1, 1, 1, dh, dh), increment),
+                        Tile("ecw", ecw, (1, 1, 1, dh), tokens)),
+               inputs=(Tile("k", bhsd, rows, tokens),
+                       Tile("v", bhsd, rows, tokens),
+                       Tile("w_logdecay", bhsd, rows, tokens)),
+               smem=3 * chunk * dh * 4, flops=increments),
+        Launch(f"wkv_scan_kernel<{dh}>", (dh // SCAN_COLS, h, b),
+               (dh * 4, 1, 1),
+               outputs=(Tile("ds", ds, (1, 1, n, dh, SCAN_COLS), scan_cols),
+                        Tile("state out", (b, h, dh, dh),
+                             (1, 1, dh, SCAN_COLS),
+                             lambda x, y, z: (z, y, 0, x))),
+               inputs=tuple(scan_ins), flops=scanned),
+        Launch(f"wkv_output_kernel<{chunk}, {dh}>", chunks, (THREADS, 1, 1),
+               outputs=(Tile("y", bhsd, rows, tokens),),
+               inputs=(Tile("r", bhsd, rows, tokens),
+                       Tile("k", bhsd, rows, tokens),
+                       Tile("v", bhsd, rows, tokens),
+                       Tile("w_logdecay", bhsd, rows, tokens),
+                       Tile("ds", ds, (1, 1, 1, dh, dh), increment),
+                       Tile("u", (h, dh), (1, dh), lambda x, y, z: (y, 0))),
+               smem=_output_smem_floats(chunk, dh) * 4,
+               flops=least - increments + float(b * h * s) * chunk * dh),
+    ]
 
 
 def _check(r, k, v, w_logdecay, u, state) -> None:
@@ -82,7 +180,7 @@ def _check(r, k, v, w_logdecay, u, state) -> None:
         raise ValueError(f"wkv takes tensors on one device, got "
                          f"{sorted(map(str, devices))}")
     device = devices.pop()
-    if device.type not in ("cpu", "cuda"):
+    if device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"wkv runs on CUDA or CPU tensors, not {device}")
 
 
@@ -138,6 +236,9 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.empty(b * h * n * dh * dh, dtype=torch.float32,
                     device=r.device),
         torch.empty(b * h * n * dh, dtype=torch.float32, device=r.device))
+    if launch_observed("rwkv6.wkv", r.device, launch_plan, r, k, v,
+                       w_logdecay, u, state, chunk=chunk):
+        return y, out
     strides = (ctypes.c_longlong * 15)(
         *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *w_logdecay.stride()[:3], *y.stride()[:3])

@@ -9,7 +9,9 @@ top of ``csrc/stencil7.cu``.
 The kernel is compiled by ``nvcc`` at the first launch (``repro_torch._build``)
 and called through ``ctypes`` on PyTorch's current stream.  CPU tensors run
 the plain version in ``ref.py``; CUDA tensors launch the kernel, or raise.
-``laplacian.launches`` counts the launches.
+``laplacian.launches`` counts the launches.  ``launch_plan`` mirrors the
+launcher's grid arithmetic (``csrc/stencil7.cu``, ``stencil7_f32``) for the
+static auditor, which calls the wrapper on ``meta`` tensors.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import functools
 import torch
 
 from repro_torch import _build
-from repro_torch.core.portable import no_grad_kernel
+from repro_torch.core.portable import (Launch, Tile, launch_observed,
+                                       no_grad_kernel)
 from repro_torch.kernels.stencil7 import ref
 
 #: declared tunables of the ``cuda`` backend (ops.py registers them)
@@ -47,6 +50,36 @@ def _library():
     return lib
 
 
+def launch_plan(u, *coefficients, block_x: int = BLOCK_X,
+                block_y: int = BLOCK_Y, zchunk: int = ZCHUNK):
+    """The one launch of ``laplacian(u, ...)``: a block of ``(block_x,
+    block_y)`` threads per (x, y) tile and ``zchunk`` planes.  A block
+    writes its (zchunk, block_y, block_x) tile and reads the same tile of
+    u, plus the plane below and the plane above its chunk (the 2/zchunk
+    re-reads); the x and y neighbours are the next blocks' cells, which
+    L1/L2 serve, so they are not counted again."""
+    nz, ny, nx = u.shape
+    grid = (-(-nx // block_x), -(-ny // block_y), -(-nz // zchunk))
+    cells = (u.shape, (zchunk, block_y, block_x))
+
+    def tile(x, y, z):
+        return (z, y, x)
+
+    def below(x, y, z):
+        return (z * zchunk - 1, y, x) if z > 0 else None
+
+    def above(x, y, z):
+        return ((z + 1) * zchunk, y, x) if (z + 1) * zchunk < nz else None
+
+    plane = (1, block_y, block_x)
+    return [Launch(
+        "stencil7_kernel", grid, (block_x, block_y, 1),
+        outputs=(Tile("f", *cells, tile),),
+        inputs=(Tile("u", *cells, tile), Tile("u z-1", u.shape, plane, below),
+                Tile("u z+1", u.shape, plane, above)),
+        flops=10.0 * (nz - 2) * (ny - 2) * (nx - 2))]
+
+
 def laplacian(u: torch.Tensor, invhx2: float = 1.0, invhy2: float = 1.0,
               invhz2: float = 1.0, invhxyz2: float = -6.0, *,
               block_x: int = BLOCK_X, block_y: int = BLOCK_Y,
@@ -58,7 +91,7 @@ def laplacian(u: torch.Tensor, invhx2: float = 1.0, invhy2: float = 1.0,
                          f"extent >= 3, got shape {tuple(u.shape)}")
     if u.device.type == "cpu":
         return ref.laplacian(u, invhx2, invhy2, invhz2, invhxyz2)
-    if u.device.type != "cuda":
+    if u.device.type not in ("cuda", "meta"):
         raise ValueError(f"stencil7 runs on CUDA or CPU tensors, not "
                          f"{u.device}")
     if u.dtype != torch.float32:
@@ -70,6 +103,9 @@ def laplacian(u: torch.Tensor, invhx2: float = 1.0, invhy2: float = 1.0,
                          f"zchunk={zchunk}")
     nz, ny, nx = u.shape
     f = torch.empty_like(u)
+    if launch_observed("stencil7", u.device, launch_plan, u,
+                       block_x=block_x, block_y=block_y, zchunk=zchunk):
+        return f
     lib = _library()
     with torch.cuda.device(u.device):
         err = lib.stencil7_f32(

@@ -105,7 +105,7 @@ def engine_threaded(params, cfg) -> torch.Tensor:
 
 
 kernel = register_kernel(
-    "serving.engine", oracle="unbatched",
+    "serving.engine", oracle="unbatched", traceable=False,
     doc="continuous-batching serving engine: greedy token streams must "
         "equal unbatched decode across cache layouts and driver loops")
 kernel.add_backend("unbatched", unbatched)

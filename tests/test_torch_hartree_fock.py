@@ -276,7 +276,10 @@ def test_registered_backends_and_tunables():
     # a team is whole warps of a 256-thread block
     assert all(256 % p["team"] == 0 and p["team"] % 32 == 0
                for p in space.points())
-    assert k.roofline_contract("cuda") == {"bound": "compute"}
+    # compute-bound; the integral scratch's traffic (4 N^3 nl bytes) is
+    # declared for the static auditor (core/analysis/cost.py)
+    assert k.roofline_contract("cuda") == {"bound": "compute",
+                                           "traffic_inflation_limit": 256.0}
 
 
 SLAB_CASES = [(5, 0, None), (5, 0, 1), (5, 3, 2), (6, 1, 3), (4, 0, 4)]

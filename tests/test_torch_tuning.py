@@ -319,10 +319,18 @@ def test_reference_and_foreign_cache_files_are_discarded(tmp_path,
         Path.home() / ".cache" / "repro_torch" / "tuning.json"
 
 
-def test_model_search_waits_for_the_cost_model():
+def test_model_search_waits_for_the_cost_model(tmp_path):
+    """The cost model (core/analysis/cost.py) is ported: search='model'
+    ranks the points statically, times at most the top k (MODEL_TOP_K, or
+    ``budget``) and caches its pick with provenance 'model'."""
     k = _toy_kernel({"n": 0})
-    with pytest.raises(ValueError, match="item 15"):
-        tuning.tune(k, torch.ones(16), backend="fast", search="model")
+    cache = tuning.TuningCache(tmp_path / "model.json")
+    r = tuning.tune(k, torch.ones(16), backend="fast", cache=cache,
+                    iters=1, warmup=0, search="model", budget=2)
+    assert r.skipped is None and r.search == "model" and not r.cached
+    assert len(r.swept) <= 2 <= tuning.MODEL_TOP_K
+    key = tuning.make_key(k, torch.ones(16), backend="fast")
+    assert cache.get(key)["search"] == "model"
     with pytest.raises(ValueError, match="search mode"):
         tuning.tune(k, torch.ones(16), backend="fast", search="bogus")
 
