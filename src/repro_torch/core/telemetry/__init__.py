@@ -27,14 +27,38 @@ Instrumentation sites call the module-level helpers::
 When disabled (the default) ``span`` returns a shared no-op context manager
 and ``instant``/``counter``/``gauge`` return at once: an instrumented hot
 path pays one module-attribute load and one ``is None`` check.  Events fire
-on the host only, never inside a captured CUDA graph, and add no device
-synchronise: a span around asynchronous work closes where the caller
-already waits for the device.
+on the host only and add no device synchronise: a span around asynchronous
+work closes where the caller already waits for the device.  The one thing
+inside a captured CUDA graph is the pair of timing events of a device span,
+captured only when telemetry was on at the capture.
 
 Enabling telemetry also installs the compile bridge
 (:mod:`repro_torch.core.telemetry.cudamon`, the port's ``jaxmon``): nvcc
 builds, Triton compiles and CUDA-graph captures become counters (and the
 builds spans) under the aggregate ``cuda.compile``.
+
+**One clock.**  Every ``ts`` is ``time.perf_counter()`` seconds since the
+recorder's ``epoch``; the recorder also keeps that epoch on the
+``time.time_ns()`` base (``epoch_ns``), torch.profiler's.  The port records
+device time on the same clock: at ``configure("on")`` and at every
+:func:`reset` (only if CUDA is initialised) ``cudamon.anchor`` records one
+timing event, waits for it and reads ``perf_counter``; a device span is
+two timing events placed from that anchor, recorded once they have
+completed (``cudamon.DeviceSpans``), on proc ``"device"``.  The serving
+engine records, besides the reference's ``serving.*`` events:
+
+    engine.prefill.enqueue   host: cache reset, forward, scatter, sample
+    engine.prefill.wait      host: the first token's sync to the host
+    device.prefill           device: the same work, first launch to last
+    engine.decode.enqueue    host: the copy-in and the graph's replay()
+    engine.decode.wait       host: the tokens' copy to the host
+    device.decode_step       device: the captured step, first node to last
+
+each a child of its ``serving.prefill`` / ``serving.decode_step``, the
+device spans with that span's ``uid``/``step``.  ``summarize`` adds the
+device's idle time between device spans, by host span, when a trace holds
+any; ``cudamon.profiler_records`` puts a profile's device records on the
+same clock.
 """
 
 from __future__ import annotations
@@ -50,7 +74,8 @@ from repro_torch.core.telemetry.export import (chrome_trace, metrics_snapshot,
                                                read_events,
                                                write_chrome_trace,
                                                write_jsonl)
-from repro_torch.core.telemetry.summarize import (format_summary, percentile,
+from repro_torch.core.telemetry.summarize import (device_summary,
+                                                  format_summary, percentile,
                                                   summarize_events,
                                                   summarize_file)
 
@@ -60,7 +85,7 @@ __all__ = [
     "snapshot", "events", "reset", "flush", "safe_attrs", "write_jsonl",
     "write_chrome_trace", "chrome_trace", "read_events", "metrics_snapshot",
     "summarize_file", "summarize_events", "format_summary", "percentile",
-    "DEFAULT_CAPACITY",
+    "device_summary", "DEFAULT_CAPACITY",
 ]
 
 ENV = "REPRO_TELEMETRY"
@@ -97,7 +122,7 @@ def configure(mode: Optional[str] = None,
     _recorder = Recorder(capacity=capacity)
     _jsonl_path = path
     from repro_torch.core.telemetry import cudamon
-    cudamon.install()
+    cudamon.install(_recorder)
     return _recorder
 
 
@@ -148,10 +173,13 @@ def events() -> List[Dict[str, Any]]:
 
 
 def reset() -> None:
-    """Clear the active recorder's events and aggregates (keep recording)."""
+    """Clear the active recorder's events and aggregates (keep recording),
+    and anchor the device's clock anew (``cudamon.anchor``)."""
     rec = _recorder
     if rec is not None:
         rec.clear()
+        from repro_torch.core.telemetry import cudamon
+        cudamon.anchor(rec)
 
 
 def flush(path: Optional[str] = None) -> Optional[str]:

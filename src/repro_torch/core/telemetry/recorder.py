@@ -33,6 +33,13 @@ record only on the host, around kernel launches and graph replays, never
 inside a captured CUDA graph (a replay runs no Python): an instrumented
 program emits its events once per *call*, adds no device synchronise, and
 its results are bitwise independent of whether telemetry is on.
+
+The port adds what the reference has no need of: ``record_span`` records
+a span measured elsewhere (a device interval timed by CUDA events), and
+``defer``/``settle`` hold such a span until its events have completed, so
+it is recorded after the work's own synchronise; reading the ring settles
+first.  ``epoch_ns`` and ``anchors`` tie the profiler's clock and the
+device's to this one (``cudamon``).
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ import itertools
 import threading
 import time
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 SCHEMA = "repro.telemetry/v1"
 
@@ -89,15 +96,15 @@ class _Span:
 
     def __enter__(self) -> "_Span":
         stack = self._rec._stack()
-        self.parent = stack[-1] if stack else None
-        stack.append(self.sid)
+        self.parent = stack[-1].sid if stack else None
+        stack.append(self)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:
         t1 = time.perf_counter()
         stack = self._rec._stack()
-        if stack and stack[-1] == self.sid:
+        if stack and stack[-1] is self:
             stack.pop()
         self._rec._record({
             "kind": "span", "name": self.name,
@@ -134,13 +141,22 @@ class Recorder:
         self.gauges: Dict[str, float] = {}
         self.dropped = 0                     # events evicted from the ring
         self.epoch = time.perf_counter()     # monotonic zero for ts fields
+        # the epoch on the time.time_ns() base, read beside it: the base of
+        # torch.profiler's records (cudamon.profiler_records)
+        self.epoch_ns = time.time_ns()
         self.epoch_unix = time.time()        # wall-clock provenance
+        #: device index -> (timing event, perf_counter read just after it
+        #: completed): where device time meets this clock (cudamon)
+        self.anchors: Dict[int, Tuple[Any, float]] = {}
         self._lock = threading.Lock()
         self._ids = itertools.count(1)
         self._local = threading.local()
+        # callables that record an event once its times are known, each
+        # returning False while they are not (deferred device spans)
+        self._pending: List[Callable[[], bool]] = []
 
     # ---- internals ----------------------------------------------------
-    def _stack(self) -> List[int]:
+    def _stack(self) -> List[_Span]:
         stack = getattr(self._local, "stack", None)
         if stack is None:
             stack = self._local.stack = []
@@ -159,11 +175,49 @@ class Recorder:
     def span(self, name: str, proc: str = "main", **attrs: Any) -> _Span:
         return _Span(self, name, proc, safe_attrs(attrs))
 
+    def open_span(self) -> Optional[_Span]:
+        """The innermost span open on the calling thread, or None."""
+        stack = self._stack()
+        return stack[-1] if stack else None
+
+    def record_span(self, name: str, start: float, dur: float,
+                    parent: Optional[int] = None, proc: str = "main",
+                    tid: Optional[str] = None, **attrs: Any) -> int:
+        """Record a span measured elsewhere: ``start`` on this recorder's
+        clock (``time.perf_counter()`` seconds), ``dur`` in seconds, under
+        the span ``parent`` (a sid); returns its sid."""
+        sid = next(self._ids)
+        self._record({
+            "kind": "span", "name": name, "ts": start - self.epoch,
+            "dur": dur, "sid": sid, "parent": parent, "proc": proc,
+            "tid": tid or threading.current_thread().name,
+            "attrs": safe_attrs(attrs),
+        })
+        return sid
+
+    def defer(self, record: Callable[[], bool]) -> None:
+        """Hold ``record`` until :meth:`settle` finds it ready: it records
+        its event and returns True, or returns False to be asked again."""
+        with self._lock:
+            self._pending.append(record)
+
+    def settle(self) -> None:
+        """Record every deferred event that is ready, in order.  Reading
+        the ring settles first."""
+        if not self._pending:
+            return
+        with self._lock:
+            pending, self._pending = self._pending, []
+        waiting = [record for record in pending if not record()]
+        if waiting:
+            with self._lock:
+                self._pending[:0] = waiting
+
     def instant(self, name: str, proc: str = "main", **attrs: Any) -> None:
         stack = self._stack()
         self._record({
             "kind": "instant", "name": name, "ts": self._now(),
-            "parent": stack[-1] if stack else None, "proc": proc,
+            "parent": stack[-1].sid if stack else None, "proc": proc,
             "tid": threading.current_thread().name,
             "attrs": safe_attrs(attrs),
         })
@@ -201,12 +255,14 @@ class Recorder:
     # ---- reading -------------------------------------------------------
     def drain(self) -> List[Dict[str, Any]]:
         """Copy-and-clear the event ring (aggregates are kept)."""
+        self.settle()
         with self._lock:
             out = list(self.events)
             self.events.clear()
         return out
 
     def event_list(self) -> List[Dict[str, Any]]:
+        self.settle()
         with self._lock:
             return list(self.events)
 
@@ -214,6 +270,7 @@ class Recorder:
         """Flat metrics dict benchmarks can embed in their artifacts:
         counters, gauges (last value), per-span-name count/total, and the
         ring-eviction count (so a truncated trace is visible as such)."""
+        self.settle()
         with self._lock:
             events = list(self.events)
             counters = dict(self.counters)
@@ -231,11 +288,14 @@ class Recorder:
                 "events_dropped": dropped}
 
     def clear(self) -> None:
+        """Drop every event, aggregate, deferred event and anchor."""
         with self._lock:
             self.events.clear()
             self.counters.clear()
             self.gauges.clear()
             self.dropped = 0
+            self._pending = []
+            self.anchors = {}
 
 
 class RingLog:

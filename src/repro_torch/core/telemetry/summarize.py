@@ -13,12 +13,22 @@ human-facing end of the telemetry pipeline: run a script with
 Percentiles use linear interpolation between order statistics — the same
 definition as ``numpy.percentile``'s default — implemented in pure Python
 so the telemetry package stays stdlib-only.
+
+When a trace holds device spans (``device.*``, the port's), the summary
+adds a ``device`` section: the device's idle time between them, by the
+innermost host span open at the start of each gap
+(:func:`device_summary`).  A trace without them summarizes as the
+reference's does.
 """
 
 from __future__ import annotations
 
+import heapq
 import json
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+#: the name prefix of device spans
+DEVICE_PREFIX = "device."
 
 from repro_torch.core.telemetry.export import read_events
 
@@ -56,9 +66,72 @@ def summarize_events(events: List[Dict[str, Any]]) -> Dict[str, Dict[str, Any]]:
     return out
 
 
+def idle_gaps(intervals: Sequence[Tuple[float, float]]
+              ) -> List[Tuple[float, float]]:
+    """The gaps between the union of (start, end) intervals, in order."""
+    gaps: List[Tuple[float, float]] = []
+    reach: Optional[float] = None
+    for a, b in sorted(intervals):
+        if reach is not None and a > reach:
+            gaps.append((reach, a))
+        reach = b if reach is None else max(reach, b)
+    return gaps
+
+
+def gaps_by_host_span(gaps: Sequence[Tuple[float, float]],
+                      host: Sequence[Tuple[float, float, str]]
+                      ) -> Dict[str, Dict[str, float]]:
+    """{name: {gaps, total_ms}}: each (start, end) gap under the innermost
+    of the (start, end, name) host spans open at its start (the latest
+    begun, the shortest of those begun together), ``(none)`` where none
+    was."""
+    ordered = sorted(host)
+    open_: List[Tuple[float, float, str]] = []     # (-start, end, name)
+    out: Dict[str, Dict[str, float]] = {}
+    i = 0
+    for g0, g1 in sorted(gaps):                    # a sweep, in time order
+        while i < len(ordered) and ordered[i][0] <= g0:
+            s, e, name = ordered[i]
+            heapq.heappush(open_, (-s, e, name))
+            i += 1
+        while open_ and open_[0][1] <= g0:         # closed before the gap
+            heapq.heappop(open_)
+        label = open_[0][2] if open_ else "(none)"
+        agg = out.setdefault(label, {"gaps": 0, "total_ms": 0.0})
+        agg["gaps"] += 1
+        agg["total_ms"] += (g1 - g0) * 1e3
+    return out
+
+
+def device_summary(events: List[Dict[str, Any]],
+                   device: Optional[Sequence[Tuple[float, float]]] = None
+                   ) -> Optional[Dict[str, Any]]:
+    """The device's busy and idle time over the trace's device spans, or
+    over ``device``, (start, end) intervals on the events' clock (a
+    profile's records, ``cudamon.profiler_records``), each idle gap named
+    by :func:`gaps_by_host_span` over the other spans; None when there is
+    no device interval."""
+    spans = [ev for ev in events if ev.get("kind") == "span" and "dur" in ev]
+    if device is None:
+        device = [(ev["ts"], ev["ts"] + ev["dur"]) for ev in spans
+                  if ev["name"].startswith(DEVICE_PREFIX)]
+    if not device:
+        return None
+    host = [(ev["ts"], ev["ts"] + ev["dur"], ev["name"]) for ev in spans
+            if not ev["name"].startswith(DEVICE_PREFIX)]
+    gaps = idle_gaps(device)
+    window = max(b for _, b in device) - min(a for a, _ in device)
+    idle = sum(b - a for a, b in gaps)
+    by = gaps_by_host_span(gaps, host)
+    return {"intervals": len(device), "window_ms": window * 1e3,
+            "busy_ms": (window - idle) * 1e3, "idle_ms": idle * 1e3,
+            "idle_by_host_span": dict(sorted(
+                by.items(), key=lambda kv: -kv[1]["total_ms"]))}
+
+
 def summarize_file(path: str) -> Dict[str, Any]:
     doc = read_events(path)
-    return {
+    out = {
         "schema": doc["header"].get("schema", "?"),
         "spans": summarize_events(doc["events"]),
         "counters": doc["footer"].get("counters", {}),
@@ -66,6 +139,10 @@ def summarize_file(path: str) -> Dict[str, Any]:
         "events": len(doc["events"]),
         "events_dropped": doc["footer"].get("events_dropped", 0),
     }
+    device = device_summary(doc["events"])
+    if device is not None:
+        out["device"] = device
+    return out
 
 
 def format_summary(summary: Dict[str, Any]) -> str:
@@ -88,6 +165,21 @@ def format_summary(summary: Dict[str, Any]) -> str:
         lines.append("counters:")
         for name in sorted(summary["counters"]):
             lines.append(f"  {name} = {summary['counters'][name]:g}")
+    device = summary.get("device")
+    if device:
+        lines.append(
+            f"device: {device['intervals']} device spans over "
+            f"{device['window_ms']:.3f} ms, busy {device['busy_ms']:.3f} ms, "
+            f"idle {device['idle_ms']:.3f} ms; idle by the host span open "
+            f"at each gap's start:")
+        by = device["idle_by_host_span"]
+        if by:
+            w = max(len(n) for n in by)
+            lines.append(f"  {'host span'.ljust(w)}  {'gaps':>6} "
+                         f"{'idle_ms':>10}")
+            for name, g in by.items():
+                lines.append(f"  {name.ljust(w)}  {g['gaps']:>6d} "
+                             f"{g['total_ms']:>10.3f}")
     return "\n".join(lines)
 
 

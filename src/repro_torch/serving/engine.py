@@ -65,8 +65,28 @@ lifecycle events at the same host-level sites: the instants
 spans ``serving.prefill``, ``serving.decode_step`` (around the graph's
 replay; it closes on the step's own copy of the tokens to the host, so no
 event adds a synchronise) and ``serving.run``; the decode step's capture
-counts as ``cuda.graph_capture``.  Nothing enters the captured region, and
-the tokens are the same with telemetry on or off.
+counts as ``cuda.graph_capture``.  The tokens are the same with telemetry
+on or off.
+
+The port splits each prefill and decode step into host and device time.
+Under ``serving.prefill``: ``engine.prefill.enqueue`` (the cache reset,
+``forward``, the scatter and ``sample``, up to the sync),
+``engine.prefill.wait`` (the ``int(...)`` that syncs) and
+``device.prefill`` (timing events before the cache reset and after
+``sample``).  Under ``serving.decode_step``: ``engine.decode.enqueue`` (the
+copy-in and ``replay()``), ``engine.decode.wait`` (the tokens' ``.cpu()``)
+and ``device.decode_step``.  With telemetry on when the engine is built,
+and events recorded in a graph timed on this card
+(``cudamon.graph_events_timed``), the decode step is captured between two
+timing events of its own, and ``device.decode_step`` runs from the
+graph's first node to its last (``decode_events == "graph"``); otherwise
+the events sit around the copy-in and the replay, and the span holds the
+copy-in and the launch's latency too (``"around"``).  The ``device.*``
+spans are on the recorder's clock (``cudamon.DeviceSpans``), each carries
+its host parent's ``uid``/``step``, and they are recorded at the next
+step, outside the ``serving.*`` spans, or when the events are read.  On the
+CPU the work is synchronous and a ``device.*`` span is the host interval
+of the same work.  Untraced engines capture the graph without events.
 """
 
 from __future__ import annotations
@@ -221,6 +241,9 @@ class ServingEngine:
         self._page_wait: Optional[Request] = None
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._device_spans = cudamon.DeviceSpans(self.device)
+        # the timing events captured in the graph (telemetry on at capture)
+        self._graph_events: Optional[Tuple[torch.cuda.Event, ...]] = None
         if self.device.type == "cuda":
             self._capture_decode()
 
@@ -262,10 +285,19 @@ class ServingEngine:
         with torch.cuda.stream(side):
             self._decode_fn()
         torch.cuda.current_stream(self.device).wait_stream(side)
+        events = None
+        if tel.enabled() and cudamon.graph_events_timed(self.device):
+            events = tuple(torch.cuda.Event(enable_timing=True,
+                                            external=True) for _ in (0, 1))
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
+            if events:
+                events[0].record()
             self._graph_out = self._decode_fn()
+            if events:
+                events[1].record()
         self._graph = graph
+        self._graph_events = events
         self.stats["decode_traces"] += 1
         cudamon.graph_captured("serving.decode_step")
 
@@ -283,6 +315,13 @@ class ServingEngine:
             return self._graph_out
         return self._decode_fn()
 
+    @property
+    def decode_events(self) -> str:
+        """Where ``device.decode_step``'s timing events sit: ``"graph"``,
+        captured in the graph, or ``"around"`` the copy-in and the replay
+        (module docstring)."""
+        return "around" if self._graph_events is None else "graph"
+
     def decode_tokens(self) -> np.ndarray:
         """One step of the driver loops, and the hook to time or profile
         one: copy the host's inputs into the static buffers, run the step
@@ -290,38 +329,60 @@ class ServingEngine:
         sampled from its request's generator when the temperature is above
         0.  Outside a loop it repeats the last step: every slot writes the
         same cache entry again."""
-        self._tok.copy_(torch.from_numpy(self.tok_buf))
-        self._pos.copy_(torch.from_numpy(self.pos_buf))
-        if self._tables is not None:
-            self._tables.copy_(torch.from_numpy(self.block_tables))
-        logits, toks = self.decode_logits()
-        if self.temperature > 0.0:
-            gens = [None if r is None else r.generator for r in self.slot_req]
-            toks = sample_per_slot(logits, gens, self.temperature)
-        return toks.cpu().numpy()
+        dev = self._device_spans
+        in_graph = self._graph_events is not None
+        if in_graph:
+            dev.settle()          # the graph's events are recorded anew
+        with tel.span("engine.decode.enqueue", proc="engine"):
+            start = None if in_graph else dev.mark()
+            self._tok.copy_(torch.from_numpy(self.tok_buf))
+            self._pos.copy_(torch.from_numpy(self.pos_buf))
+            if self._tables is not None:
+                self._tables.copy_(torch.from_numpy(self.block_tables))
+            logits, toks = self.decode_logits()
+            end = None if in_graph else dev.mark()
+            if self.temperature > 0.0:
+                gens = [None if r is None else r.generator
+                        for r in self.slot_req]
+                toks = sample_per_slot(logits, gens, self.temperature)
+        with tel.span("engine.decode.wait", proc="engine"):
+            out = toks.cpu().numpy()
+        if in_graph:
+            start, end = self._graph_events
+        dev.span("device.decode_step", start, end, pooled=not in_graph)
+        return out
 
     def _prefill(self, tokens: torch.Tensor, length: int, slot: int,
                  generator: Optional[torch.Generator],
                  table_row: Optional[np.ndarray]) -> int:
-        small = self._prefill_cache
-        for c in [*small["eager"].values(), *small["segments"]]:
-            # a fresh cache: scatter_prefill's sentinel writes rely on it
-            c["self"]["k"].zero_()
-            c["self"]["v"].zero_()
-            c["self"]["pos"].fill_(-1)
-        lengths = torch.tensor([length], dtype=torch.int32,
-                               device=self.device)
-        logits, small, _ = forward(self.params, self.cfg, tokens,
-                                   caches=small, lengths=lengths,
-                                   last_only=True)
-        if table_row is None:
-            scatter_slot_cache(self.caches, small, slot)
-        else:
-            scatter_prefill(self.caches, small,
-                            torch.from_numpy(table_row).long().to(self.device),
-                            slot, self.cfg, cache_len=self.cache_len,
-                            block_size=self.block_size)
-        return int(sample(logits[:, -1], generator, self.temperature)[0])
+        dev = self._device_spans
+        with tel.span("engine.prefill.enqueue", proc="engine"):
+            start = dev.mark()
+            small = self._prefill_cache
+            for c in [*small["eager"].values(), *small["segments"]]:
+                # a fresh cache: scatter_prefill's sentinel writes rely on it
+                c["self"]["k"].zero_()
+                c["self"]["v"].zero_()
+                c["self"]["pos"].fill_(-1)
+            lengths = torch.tensor([length], dtype=torch.int32,
+                                   device=self.device)
+            logits, small, _ = forward(self.params, self.cfg, tokens,
+                                       caches=small, lengths=lengths,
+                                       last_only=True)
+            if table_row is None:
+                scatter_slot_cache(self.caches, small, slot)
+            else:
+                scatter_prefill(
+                    self.caches, small,
+                    torch.from_numpy(table_row).long().to(self.device),
+                    slot, self.cfg, cache_len=self.cache_len,
+                    block_size=self.block_size)
+            tok = sample(logits[:, -1], generator, self.temperature)
+            end = dev.mark()
+        with tel.span("engine.prefill.wait", proc="engine"):
+            tok0 = int(tok[0])
+        dev.span("device.prefill", start, end)
+        return tok0
 
     def _clock(self) -> float:
         return time.perf_counter() - self._t0
@@ -423,6 +484,7 @@ class ServingEngine:
             row = np.full(self.pages_per_slot, SENTINEL_BLOCK, np.int32)
             row[:n_pages] = pages
             self.block_tables[slot] = row
+        self._device_spans.settle()          # the last step's, outside
         with tel.span("serving.prefill", proc="engine", uid=req.uid,
                       slot=slot, prompt_len=L, bucket=bucket):
             tok0 = self._prefill(torch.from_numpy(toks).to(self.device), L,
@@ -449,6 +511,7 @@ class ServingEngine:
         if active == 0:
             return 0
         n0 = len(finished)
+        self._device_spans.settle()          # the last step's, outside
         tel.gauge("serving.queue_depth", len(self.queue), proc="engine")
         tel.gauge("serving.slot_occupancy", active / self.num_slots,
                   proc="engine")
