@@ -154,7 +154,8 @@ and runs each hand-written kernel once per shard.
                 one's; a prefill's host enqueue with and without the
                 lookups; then one engine with telemetry on: a Chrome trace
                 and a JSONL (temporary directory), the summarize table,
-                ``cuda.graph_capture == 1`` and the tokens equal to the run
+                ``cuda.graph_capture`` one a prefill bucket and one for the
+                decode step, and the tokens equal to the run
                 with telemetry off, tok/s on and off;
   8. rwkv:      the WKV kernel on its conformance case (in 1) and over its
                 chunks at head dims 32 and 64, S = 1, ragged S and S = 2047
@@ -1211,11 +1212,12 @@ def serve(params, cfg, param_gb: float, dev, seed: int, card: str
         wall = time.perf_counter() - t0
         counts = engine_counts()
         st = engine.stats
-        # prefill runs eagerly, one flash call a layer a prefill; the
-        # decode step is captured once, so its wrapper runs twice a layer
-        # (the warm-up and the capture) and every step is a replay, which
-        # the wrapper's counter does not see: profiled_run counts those
-        expect = {ATTN[0]: cfg.n_layers * st["prefill_calls"],
+        # each prefill bucket and the decode step are captured once, so
+        # their wrappers run twice a layer a graph (the warm-up and the
+        # capture) and every prefill and step is a replay, which the
+        # wrappers' counters do not see: profiled_run counts those
+        n_buckets = len(SERVE["prefill_buckets"])
+        expect = {ATTN[0]: 2 * cfg.n_layers * n_buckets,
                   ATTN[1]: 2 * cfg.n_layers}
         print(f"main path [serving, {label}] launches: {counts}; prefill "
               f"calls {st['prefill_calls']}, decode steps "
@@ -1224,13 +1226,17 @@ def serve(params, cfg, param_gb: float, dev, seed: int, card: str
               f"; the engine built and captured in {build_s:.1f} s")
         if counts != expect:
             fail(f"{label}: serving launched {counts}, not {expect}")
-        if st["graph_replays"] != st["decode_steps"]:
+        if st["graph_replays"] != st["decode_steps"] or \
+                st["prefill_replays"] != st["prefill_calls"]:
             fail(f"{label}: {st['decode_steps']} decode steps but "
-                 f"{st['graph_replays']} graph replays")
-        if st["decode_traces"] != 1 or st["prefill_traces"] != 0:
+                 f"{st['graph_replays']} graph replays, "
+                 f"{st['prefill_calls']} prefills but "
+                 f"{st['prefill_replays']} prefill replays")
+        if st["decode_traces"] != 1 or st["prefill_traces"] != n_buckets:
             fail(f"{label}: decode_traces {st['decode_traces']}, "
                  f"prefill_traces {st['prefill_traces']}: the decode step "
-                 f"must be captured exactly once, prefill never")
+                 f"must be captured exactly once, each prefill bucket "
+                 f"once")
         done = sorted(finished, key=lambda r: r.uid)
         if len(done) != REQUESTS or any(
                 len(r.generated) != MAX_NEW
@@ -1682,12 +1688,15 @@ def serve_tuned(params, cfg, dev, seed: int, card: str, untuned,
     print(f"telemetry trace: {summary['events']} events in the JSONL, "
           f"{n_chrome} in the Chrome trace ({tmp}):")
     print(tel.format_summary(summary))
-    if counters.get(cudamon.GRAPH_CAPTURE) != 1:
+    captures = 1 + len(SERVE["prefill_buckets"])
+    if counters.get(cudamon.GRAPH_CAPTURE) != captures:
         fail(f"the engine with telemetry on counted "
-             f"{counters.get(cudamon.GRAPH_CAPTURE)} graph captures, not 1")
+             f"{counters.get(cudamon.GRAPH_CAPTURE)} graph captures, not "
+             f"{captures}")
     if toks_on != toks:
         fail("telemetry on changed the engine's tokens")
-    print(f"telemetry: {cudamon.GRAPH_CAPTURE} = 1, tokens equal with "
+    print(f"telemetry: {cudamon.GRAPH_CAPTURE} = {captures}, tokens equal "
+          f"with "
           f"telemetry on and off; {out['tok_per_s_telemetry']:.2f} tok/s "
           f"on against {out['tok_per_s']:.2f} off")
     out["counters"] = counters
@@ -2434,7 +2443,10 @@ def serve_moe(dev, seed: int, bw: float, card: str) -> Dict[str, Any]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, st = engine_counts(), engine.stats
-    expect = {ATTN[0]: cfg.n_layers * st["prefill_calls"],
+    # the warm-up and the capture of each graph: every prefill and step
+    # is a replay
+    n_buckets = len(SERVE["prefill_buckets"])
+    expect = {ATTN[0]: 2 * cfg.n_layers * n_buckets,
               ATTN[1]: 2 * cfg.n_layers}
     print(f"main path [{MOE_ARCH} serving, contiguous] launches: {counts}; "
           f"prefill calls {st['prefill_calls']}, decode steps "
@@ -2447,6 +2459,12 @@ def serve_moe(dev, seed: int, bw: float, card: str) -> Dict[str, Any]:
         fail(f"{MOE_ARCH}: decode_traces {st['decode_traces']}, "
              f"{st['graph_replays']} replays of {st['decode_steps']} steps: "
              f"the step must be captured once and every step replayed")
+    if st["prefill_traces"] != n_buckets or \
+            st["prefill_replays"] != st["prefill_calls"]:
+        fail(f"{MOE_ARCH}: prefill_traces {st['prefill_traces']}, "
+             f"{st['prefill_replays']} replays of {st['prefill_calls']} "
+             f"prefills: each bucket must be captured once and every "
+             f"prefill replayed")
     done = sorted(finished, key=lambda r: r.uid)
     if len(done) != REQUESTS or any(
             len(r.generated) != MAX_NEW
@@ -4086,7 +4104,11 @@ def main() -> None:
         else:
             rec["launches_counted"] = (
                 "launches: wrapper calls on every main path "
-                "(launches_by_path), a self-attention layer's a prefill "
+                "(launches_by_path): while each granite-3-8b engine and "
+                "the deepseek-moe-16b engine is built, a layer's in the "
+                "warm-up and in the capture of each prefill bucket (a "
+                "replay runs no wrapper); on the archs served through "
+                "generate, a self-attention layer's a prefill "
                 "(whisper-tiny's encoder layers included) and a "
                 "cross-attention layer's a prefill and a decode step; "
                 "device_launches: flash_wgmma_kernels by torch.profiler in "

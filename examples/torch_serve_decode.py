@@ -1,5 +1,6 @@
 """Serving driver for the PyTorch port: continuous batching on the slot
-engine, the decode step captured once as a CUDA graph.
+engine, each prefill bucket and the decode step captured once as CUDA
+graphs.
 
     PYTHONPATH=src python examples/torch_serve_decode.py                # GPU
     PYTHONPATH=src python examples/torch_serve_decode.py --device cpu
@@ -10,10 +11,10 @@ The port's counterpart of ``examples/serve_decode.py``.  Requests arrive
 on a Poisson trace with ragged prompt lengths and are admitted into freed
 KV-cache slots between decode steps.  The engine runs two call shapes that
 never change as requests arrive and finish: a prefill a bucket of the
-prefill ladder (eager) and one (num_slots, 1) decode step, which on the
-GPU is captured once as a CUDA graph when the engine is built and replayed
-at every step (``decode_traces == 1``, asserted on the GPU).  On the CPU
-the same step runs eagerly.
+prefill ladder and one (num_slots, 1) decode step.  On the GPU each is
+captured once as a CUDA graph when the engine is built and replayed at
+every admission and step (``decode_traces == 1`` and every prefill a
+replay, asserted on the GPU).  On the CPU both run eagerly.
 
 ``--cache-layout paged`` serves from a page pool with per-slot block
 tables; ``--threaded`` runs ``run_threaded`` (an injector thread, an
@@ -103,14 +104,17 @@ def main() -> None:
           + (f"; itl p50 {lat['p50_itl_s'] * 1e3:.2f} ms "
              f"p95 {lat['p95_itl_s'] * 1e3:.2f} ms"
              if "p95_itl_s" in lat else ""))
-    print(f"captured shapes: prefill x{s['prefill_traces']} (eager, "
-          f"{s['prefill_calls']} calls) decode x{s['decode_traces']} "
-          f"({s['decode_steps']} steps)")
+    print(f"captured shapes: prefill x{s['prefill_traces']} "
+          f"({s['prefill_replays']} replays of {s['prefill_calls']} calls) "
+          f"decode x{s['decode_traces']} ({s['decode_steps']} steps)")
     if len(done) != requests:
         raise SystemExit(f"the engine drained {len(done)}/{requests}")
     if dev.type == "cuda" and s["decode_traces"] != 1:
         raise SystemExit(f"decode_traces {s['decode_traces']}: the decode "
                          f"step must be captured exactly once")
+    if dev.type == "cuda" and s["prefill_replays"] != s["prefill_calls"]:
+        raise SystemExit(f"{s['prefill_replays']} of {s['prefill_calls']} "
+                         f"prefills replayed a bucket's graph")
 
     # two finished requests replayed alone through unbatched generate
     for req in sorted(done, key=lambda r: r.uid)[:2]:

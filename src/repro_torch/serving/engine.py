@@ -9,9 +9,22 @@ change as requests arrive and finish:
     that fits and masked via position -1
     (``models/transformer.leftpad_positions``); the single-row cache it
     fills is copied into the engine's cache at the assigned slot
-    (MaxText-style prefill-insert).  Prefill runs eagerly: a 2048-bucket
-    prefill of granite-3-8b keeps an H100 busy about 91% of its wall time
-    (PERF.md), so ``stats["prefill_traces"]`` stays 0;
+    (MaxText-style prefill-insert).  On CUDA weights each bucket's prefill
+    is captured as a CUDA graph in the constructor, largest bucket first,
+    into one memory pool the prefill graphs share (prefills never overlap,
+    and each graph's outputs are read before the next replay): the reset
+    of the single-row cache, ``forward``, for the contiguous layout the
+    copy into the engine's cache at a slot read from a static device index
+    (so one graph serves every slot), and the greedy token.  Eagerly
+    enqueued, a 512- or 1024-bucket prefill of granite-3-8b kept the host
+    busy for almost all of its time and the card mostly idle (PERF.md).
+    ``_admit`` writes the left-padded prompt, its length and its slot into
+    pinned host staging, copied into the static inputs before each replay.
+    Sampling at a temperature above 0 and the paged layout's
+    ``scatter_prefill`` run eagerly after the replay.
+    ``stats["prefill_traces"]`` counts the captured buckets and
+    ``stats["prefill_replays"]`` the prefills run as a replay; on CPU
+    tensors the same prefill runs eagerly and both stay 0;
   * decode — one (num_slots, 1) step for all slots.  Inactive slots decode
     garbage whose tokens are ignored and whose cache writes land in storage
     no active request reads.  On CUDA weights the step is captured once per
@@ -20,8 +33,11 @@ change as requests arrive and finish:
     life of the engine); before each replay the step's inputs are copied
     into static device buffers, and the caches are the engine's own
     tensors, written in place.  On CPU tensors the same step runs eagerly
-    and ``decode_traces`` stays 0.  A capture or replay that fails raises:
-    there is no eager retry.
+    and ``decode_traces`` stays 0.  The decode graph keeps a memory pool of
+    its own.  A capture or replay that fails raises: there is no eager
+    retry.  The graphs are captured before any driver thread exists.  A
+    replay, prefill or decode, moves neither the attention wrappers'
+    launch counters nor ``attn.dispatch`` records: the capture did.
 
 Two KV-cache layouts (``cache_layout=``), equal in their greedy tokens:
 
@@ -62,17 +78,18 @@ lifecycle events at the same host-level sites: the instants
 ``serving.enqueue``, ``serving.slot_assign``, ``serving.first_token`` and
 ``serving.finish``, the ``serving.requests_finished`` counter, the
 ``serving.queue_depth`` and ``serving.slot_occupancy`` gauges, and the
-spans ``serving.prefill``, ``serving.decode_step`` (around the graph's
-replay; it closes on the step's own copy of the tokens to the host, so no
-event adds a synchronise) and ``serving.run``; the decode step's capture
-counts as ``cuda.graph_capture``.  The tokens are the same with telemetry
-on or off.
+spans ``serving.prefill`` (``replay=True`` when a graph ran it),
+``serving.decode_step`` (around the graph's replay; it closes on the
+step's own copy of the tokens to the host, so no event adds a synchronise)
+and ``serving.run``; each capture, the decode step's and each prefill
+bucket's, counts as ``cuda.graph_capture``.  The tokens are the same with
+telemetry on or off.
 
 The port splits each prefill and decode step into host and device time.
-Under ``serving.prefill``: ``engine.prefill.enqueue`` (the cache reset,
-``forward``, the scatter and ``sample``, up to the sync),
-``engine.prefill.wait`` (the ``int(...)`` that syncs) and
-``device.prefill`` (timing events before the cache reset and after
+Under ``serving.prefill``: ``engine.prefill.enqueue`` (the copy-in and the
+replay, or the eager prefill, then the paged scatter and ``sample``, up to
+the sync), ``engine.prefill.wait`` (the ``int(...)`` that syncs) and
+``device.prefill`` (timing events before the copy-in and after
 ``sample``).  Under ``serving.decode_step``: ``engine.decode.enqueue`` (the
 copy-in and ``replay()``), ``engine.decode.wait`` (the tokens' ``.cpu()``)
 and ``device.decode_step``.  With telemetry on when the engine is built,
@@ -95,7 +112,7 @@ import dataclasses
 import queue as _queue
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -116,18 +133,24 @@ from repro_torch.training.serve_step import (decode_step, sample,
                                              sample_per_slot)
 
 
-def scatter_slot_cache(big: Params, small: Params, slot: int) -> None:
+def scatter_slot_cache(big: Params, small: Params,
+                       slot: Union[int, torch.Tensor]) -> None:
     """Copy a batch-1 cache into the engine cache at ``slot``, in place.
 
-    Eager-layer leaves are (batch, ...); scan-segment leaves are stacked
-    (n_layers, batch, ...), so the batch axis is 0 and 1 respectively.
+    ``slot`` is an int or a (1,) int64 tensor on the caches' device, read
+    on the device: one captured prefill serves every slot.  Eager-layer
+    leaves are (batch, ...); scan-segment leaves are stacked (n_layers,
+    batch, ...), so the batch axis is 0 and 1 respectively.
     """
+    if isinstance(slot, int):
+        slot = torch.tensor([slot])
     for key, c in big["eager"].items():
         for name, t in c["self"].items():
-            t[slot].copy_(small["eager"][key]["self"][name][0])
+            t.index_copy_(0, slot.to(t.device),
+                          small["eager"][key]["self"][name])
     for bg, sm in zip(big["segments"], small["segments"]):
         for name, t in bg["self"].items():
-            t[:, slot].copy_(sm["self"][name][:, 0])
+            t.index_copy_(1, slot.to(t.device), sm["self"][name])
 
 
 class JetThread(threading.Thread):
@@ -212,6 +235,14 @@ class ServingEngine:
             self.caches = init_caches(cfg, num_slots, cache_len, self.device)
         # the single-row cache every prefill writes, emptied before each
         self._prefill_cache = init_caches(cfg, 1, cache_len, self.device)
+        # the prefill's static inputs: a bucket's left-padded prompt in the
+        # first columns, then the prompt's true length and its slot; _admit
+        # writes the host side (pinned on CUDA), _prefill copies it in
+        self._prefill_host = torch.zeros(
+            self.prefill_len + 2, dtype=torch.int64,
+            pin_memory=self.device.type == "cuda")
+        self._prefill_in = torch.zeros(self.prefill_len + 2,
+                                       dtype=torch.int64, device=self.device)
         self.tok_buf = np.zeros((num_slots, 1), np.int32)
         self.pos_buf = np.zeros((num_slots, 1), np.int32)
         # the decode step's static inputs: tok_buf, pos_buf and the block
@@ -230,13 +261,15 @@ class ServingEngine:
         self._cond = threading.Condition(self._lock)
         # the reference's counters, then the port's own: graph_replays
         # (decode steps run as a replay of the captured graph),
+        # prefill_replays (prefills run as a replay of their bucket's),
         # page_waits (requests that found a free slot but too few free
         # pages, each counted once) and pages_peak (the most pages held)
         self.stats: Dict[str, int] = {
             "prefill_traces": 0, "decode_traces": 0,
             "prefill_calls": 0, "decode_steps": 0,
             "requests_finished": 0, "tokens_generated": 0,
-            "graph_replays": 0, "page_waits": 0, "pages_peak": 0,
+            "graph_replays": 0, "prefill_replays": 0, "page_waits": 0,
+            "pages_peak": 0,
         }
         self._page_wait: Optional[Request] = None
         self._graph: Optional[torch.cuda.CUDAGraph] = None
@@ -244,8 +277,13 @@ class ServingEngine:
         self._device_spans = cudamon.DeviceSpans(self.device)
         # the timing events captured in the graph (telemetry on at capture)
         self._graph_events: Optional[Tuple[torch.cuda.Event, ...]] = None
+        # bucket -> (its prefill's graph, the graph's outputs)
+        self._prefill_graphs: Dict[
+            int, Tuple[torch.cuda.CUDAGraph,
+                       Tuple[torch.Tensor, torch.Tensor]]] = {}
         if self.device.type == "cuda":
             self._capture_decode()
+            self._capture_prefill()
 
     # ------------------------------------------------------------------
     def _decode_fn(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -352,32 +390,88 @@ class ServingEngine:
         dev.span("device.decode_step", start, end, pooled=not in_graph)
         return out
 
-    def _prefill(self, tokens: torch.Tensor, length: int, slot: int,
+    def _prefill_fn(self, bucket: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One prefill at ``bucket`` from the static inputs: (the last
+        position's logits (1, V), its greedy token (1,) int32).  Empties
+        the single-row cache and fills it; for the contiguous layout,
+        copies it into the engine's cache at the static slot."""
+        n = self.prefill_len
+        small = self._prefill_cache
+        for c in [*small["eager"].values(), *small["segments"]]:
+            # a fresh cache: scatter_prefill's sentinel writes rely on it
+            c["self"]["k"].zero_()
+            c["self"]["v"].zero_()
+            c["self"]["pos"].fill_(-1)
+        logits, _, _ = forward(self.params, self.cfg,
+                               self._prefill_in[None, :bucket], caches=small,
+                               lengths=self._prefill_in[n:n + 1],
+                               last_only=True)
+        if self._tables is None:
+            scatter_slot_cache(self.caches, small, self._prefill_in[n + 1:])
+        last = logits[:, -1]
+        return last, sample(last)
+
+    def _capture_prefill(self) -> None:
+        """Capture each bucket's prefill as a CUDA graph (module docstring),
+        the decode step's recipe: largest bucket first, into one pool, so
+        that the smaller buckets reuse the largest one's blocks.
+
+        Each capture follows one eager warm-up on a side stream, which loads
+        the kernels and the library handles at the bucket's shapes.  The
+        warm-up runs on a prompt of token 0 filling the bucket, into slot
+        0, whose row the prefill of any request admitted to it overwrites
+        whole; the paged pool it does not touch.  The capture itself
+        executes nothing.
+        """
+        pool = torch.cuda.graph_pool_handle()
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        for bucket in reversed(self.prefill_buckets):
+            self._prefill_in[self.prefill_len] = bucket
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self._prefill_fn(bucket)
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                out = self._prefill_fn(bucket)
+            self._prefill_graphs[bucket] = (graph, out)
+            self.stats["prefill_traces"] += 1
+            cudamon.graph_captured("serving.prefill")
+
+    def prefill_logits(self, bucket: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One prefill at ``bucket`` on the static inputs as they stand:
+        (the last position's logits, its greedy token) on the device.  The
+        bucket's graph replayed on CUDA, whose outputs are overwritten by
+        the next prefill's replay; eagerly on the CPU."""
+        captured = self._prefill_graphs.get(bucket)
+        if captured is None:
+            return self._prefill_fn(bucket)
+        graph, out = captured
+        graph.replay()
+        self.stats["prefill_replays"] += 1
+        return out
+
+    def _prefill(self, bucket: int, slot: int,
                  generator: Optional[torch.Generator],
                  table_row: Optional[np.ndarray]) -> int:
+        """The prefill ``_admit`` staged: copy its inputs in, run it
+        (``prefill_logits``), scatter the paged layout's pages and sample;
+        the first token, on the host."""
         dev = self._device_spans
         with tel.span("engine.prefill.enqueue", proc="engine"):
             start = dev.mark()
-            small = self._prefill_cache
-            for c in [*small["eager"].values(), *small["segments"]]:
-                # a fresh cache: scatter_prefill's sentinel writes rely on it
-                c["self"]["k"].zero_()
-                c["self"]["v"].zero_()
-                c["self"]["pos"].fill_(-1)
-            lengths = torch.tensor([length], dtype=torch.int32,
-                                   device=self.device)
-            logits, small, _ = forward(self.params, self.cfg, tokens,
-                                       caches=small, lengths=lengths,
-                                       last_only=True)
-            if table_row is None:
-                scatter_slot_cache(self.caches, small, slot)
-            else:
+            self._prefill_in.copy_(self._prefill_host, non_blocking=True)
+            logits, tok = self.prefill_logits(bucket)
+            if table_row is not None:
                 scatter_prefill(
-                    self.caches, small,
+                    self.caches, self._prefill_cache,
                     torch.from_numpy(table_row).long().to(self.device),
                     slot, self.cfg, cache_len=self.cache_len,
                     block_size=self.block_size)
-            tok = sample(logits[:, -1], generator, self.temperature)
+            if self.temperature > 0.0:
+                tok = sample(logits, generator, self.temperature)
             end = dev.mark()
         with tel.span("engine.prefill.wait", proc="engine"):
             tok0 = int(tok[0])
@@ -470,8 +564,10 @@ class ServingEngine:
                     slot=slot, queued_s=now - req.arrival_time)
         L = req.prompt_len
         bucket = self._bucket_for(L)
-        toks = np.zeros((1, bucket), np.int64)
-        toks[0, bucket - L:] = req.prompt                # left-pad
+        staged = self._prefill_host.numpy()      # the static inputs' layout
+        staged[:bucket - L] = 0                          # left-pad
+        staged[bucket - L:bucket] = req.prompt
+        staged[self.prefill_len:] = L, slot
         row = None
         if self.cache_layout == "paged":
             # the request's whole lifetime up front: decode never reaches
@@ -486,9 +582,9 @@ class ServingEngine:
             self.block_tables[slot] = row
         self._device_spans.settle()          # the last step's, outside
         with tel.span("serving.prefill", proc="engine", uid=req.uid,
-                      slot=slot, prompt_len=L, bucket=bucket):
-            tok0 = self._prefill(torch.from_numpy(toks).to(self.device), L,
-                                 slot, req.generator, row)   # host sync
+                      slot=slot, prompt_len=L, bucket=bucket,
+                      replay=bucket in self._prefill_graphs):
+            tok0 = self._prefill(bucket, slot, req.generator, row)  # syncs
         self.stats["prefill_calls"] += 1
         now = self._clock()
         req.t_first_token = now

@@ -552,10 +552,11 @@ def test_engine_drains_a_trace_through_the_kernels(cuda):
     got = serving_portable.engine_contiguous(params, cfg)
     eng_flash, eng_decode = (attn_kernel.flash.launches,
                              attn_kernel.decode.launches)
-    # 6 prefills; the decode step is captured once as a CUDA graph (a
-    # warm-up call and the capture), and its 9 steps are replays, which
-    # the wrapper's counter does not see
-    assert eng_flash == cfg.n_layers * len(serving_portable.PROMPT_LENS)
+    # each prefill bucket and the decode step are captured once as CUDA
+    # graphs (a warm-up call and the capture each); the 6 prefills and the
+    # 9 steps are replays, which the wrappers' counters do not see
+    assert eng_flash == \
+        2 * cfg.n_layers * len(serving_portable.PREFILL_BUCKETS)
     assert eng_decode == cfg.n_layers * 2
     want = serving_portable.unbatched(params, cfg)
     assert torch.equal(got, want)
@@ -610,12 +611,14 @@ def test_engine_captures_the_decode_step_once(cuda, layout):
         r.arrival_time = 0.004 * i
     done = eng.run(trace)
     assert eng.stats["decode_traces"] == 1
-    assert eng.stats["prefill_traces"] == 0
+    assert eng.stats["prefill_traces"] == len(eng.prefill_buckets)
     assert eng.stats["decode_steps"] == eng.stats["graph_replays"] > 0
-    # a replay does not move the wrappers' counters
+    assert eng.stats["prefill_calls"] == eng.stats["prefill_replays"] > 0
+    # a replay does not move the wrappers' counters: the warm-up and the
+    # capture of each graph do
     assert attn_kernel.decode.launches == 2 * cfg.n_layers
     assert attn_kernel.flash.launches == \
-        cfg.n_layers * eng.stats["prefill_calls"]
+        2 * cfg.n_layers * len(eng.prefill_buckets)
     want = serving_portable.unbatched(params, cfg)
     got = torch.tensor([r.generated for r in sorted(done,
                                                     key=lambda r: r.uid)],
@@ -973,7 +976,9 @@ def test_engine_counts_one_graph_capture(cuda):
     finally:
         tel.configure(os.environ.get(tel.ENV))
     assert eng.stats["decode_traces"] == 1
-    assert counters[cudamon.GRAPH_CAPTURE] == 1
+    # the decode step's and the one prefill bucket's
+    assert eng.stats["prefill_traces"] == 1
+    assert counters[cudamon.GRAPH_CAPTURE] == 2
 
 
 # --------------------------------------------------------------------------

@@ -422,14 +422,15 @@ def test_paged_engine_defaults_and_stats_equal_the_reference():
         theirs.num_blocks, theirs.block_size, theirs.pages_per_slot)
     assert ours.num_blocks == 3 * 32 // 16 + RESERVED_BLOCKS
     np.testing.assert_array_equal(ours.block_tables, theirs.block_tables)
-    # the reference's counters, and the port's three of its own
+    # the reference's counters, and the port's four of its own
     assert set(ours.stats) - set(theirs.stats) == {
-        "graph_replays", "page_waits", "pages_peak"}
+        "graph_replays", "prefill_replays", "page_waits", "pages_peak"}
     assert set(theirs.stats) <= set(ours.stats)
-    # on CPU weights the decode step runs eagerly: nothing is captured
+    # on CPU weights the prefill and the decode step run eagerly: nothing
+    # is captured
     ours.run(_reqs(cfg, [3, 9], max_new=3))
     assert ours.stats["decode_traces"] == ours.stats["prefill_traces"] == 0
-    assert ours.stats["graph_replays"] == 0
+    assert ours.stats["graph_replays"] == ours.stats["prefill_replays"] == 0
     assert ours.stats["decode_steps"] > 0
     with pytest.raises(ValueError, match="cache_layout"):
         ServingEngine(params, cfg, cache_layout="ring")
