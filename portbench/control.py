@@ -8,10 +8,11 @@ For each seed, in one process: the cell's weights, engine and traffic as
 cell's own load, then, with the engine freed, the sample ``judge.py``
 draws from the requests the window finished.  Over that sample it prints
 the program's numbers (its served tokens against the float32 reference)
-and the control's: the reference computed in fp8 (``reference.py``,
-``mode="fp8"``), put in the program's place at the same positions, its
-first choice at each judged by the same float32 reference.  The benchmark's
-own runs never run the control.
+and the control's: the reference computed in fp8 (the configuration's
+reference, ``reference.py`` by default, ``mode="fp8"``), put in the
+program's place at the same positions, its first choice at each judged by
+the same float32 reference.  The benchmark's own runs never run the
+control.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from pathlib import Path
 sys.path[:0] = [str(Path(__file__).resolve().parents[1] / "src"),
                 str(Path(__file__).resolve().parents[1])]
 
-from portbench import judge, reference, run  # noqa: E402
+from portbench import judge, run  # noqa: E402
 
 
 def control_numbers(params, cell, chosen, f32_logits):
@@ -36,8 +37,8 @@ def control_numbers(params, cell, chosen, f32_logits):
     items = [(list(r.prompt), list(r.generated),
               min(b for b in cell.geom["prefill_buckets"]
                   if r.prompt_len <= b)) for r in chosen]
-    fp8 = reference.served_logits(params, cell.arch, items,
-                                  cell.geom["cache_len"], mode="fp8")
+    fp8 = cell.reference.served_logits(params, cell.arch, items,
+                                       cell.geom["cache_len"], mode="fp8")
     gaps = [judge.gaps(ref, lg.argmax(-1).tolist())
             for ref, lg in zip(f32_logits, fp8)]
     return judge.numbers(gaps)
@@ -66,8 +67,8 @@ def one_seed(cell, seed: int, seconds: float, device: str,
               min(b for b in cell.geom["prefill_buckets"]
                   if r.prompt_len <= b)) for r in chosen]
     t1 = time.perf_counter()
-    f32 = reference.served_logits(params, cell.arch, items,
-                                  cell.geom["cache_len"])
+    f32 = cell.reference.served_logits(params, cell.arch, items,
+                                       cell.geom["cache_len"])
     program = judge.numbers([judge.gaps(lg, r.generated)
                              for lg, r in zip(f32, chosen)])
     t2 = time.perf_counter()

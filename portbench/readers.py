@@ -4,7 +4,8 @@ A reader (``metrics/<name>.py``) defines ``read(ctx)`` and returns a
 number, or None when the run gave it nothing to read.  ``ctx`` is
 ``run.Context``: the window, every request submitted, the spans the
 program recorded in the window (traced run), the profiled stretch, the
-configuration and the engine's geometry.
+configuration, its model arithmetic (``counts``) and the engine's
+geometry.
 """
 
 from __future__ import annotations
@@ -48,15 +49,16 @@ def spans(ctx: Any, name: str) -> List[float]:
 def useful_flops(ctx: Any) -> float:
     """Model flops of the work done in the window: each prefill whose
     first token came in it (its prompt without pads), each decoded token
-    that came in it (counts.py)."""
+    that came in it (the configuration's counts, ``counts.py`` by
+    default)."""
     total = 0.0
     for r in ctx.requests:
         if in_window(ctx, r.t_first_token):
-            total += counts.prefill_flops(ctx.arch, r.prompt_len)
+            total += ctx.counts.prefill_flops(ctx.arch, r.prompt_len)
         for i, t in enumerate(r.t_tokens[1:], start=1):
             if in_window(ctx, t):
-                total += counts.decode_token_flops(ctx.arch,
-                                                   r.prompt_len + i - 1)
+                total += ctx.counts.decode_token_flops(ctx.arch,
+                                                       r.prompt_len + i - 1)
     return total
 
 

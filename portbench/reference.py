@@ -24,6 +24,10 @@ What the program's timed path derives, it works out again:
   * the cache: a decoded token attends to the prompt and the tokens
     before it, by position.
 
+A configuration whose attention differs gives ``served_logits`` its own
+sublayer (``attention``); the norms, the routing, the MoE layer, the
+shared experts and the unembedding stay these.
+
 ``mode="fp8"`` is the control: every matrix product takes its inputs
 rounded to float8 e4m3, the weights scaled per output column and the
 activations per row, as an fp8 deployment would, and accumulates in
@@ -33,7 +37,7 @@ float32.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -125,6 +129,11 @@ def attention(x: torch.Tensor, p: Dict[str, torch.Tensor], lin: Linear,
         mean_v = v[in_prompt].sum(0) / cache_len                 # (Kv, Dh)
         out[pads] = mean_v.repeat_interleave(g, dim=0)
     return lin(out.reshape(s, h * dh), p["wo"])
+
+
+#: ``served_logits``'s default sublayer (its argument ``attention`` hides
+#: the function)
+gqa_attention = attention
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -220,11 +229,14 @@ def sequence(prompt: Sequence[int], served: Sequence[int], bucket: int
 @torch.no_grad()
 def served_logits(params: Dict[str, Any], arch: Dict[str, Any],
                   items: Sequence[Tuple[Sequence[int], Sequence[int], int]],
-                  cache_len: int, mode: str = "f32"
+                  cache_len: int, mode: str = "f32",
+                  attention: Optional[Callable[..., torch.Tensor]] = None
                   ) -> List[torch.Tensor]:
     """For each (prompt, served tokens, bucket): the logits (n_served,
     vocab) float32 whose row i scores served token i.  Layer by layer over
-    all items, so each layer's weights are cast up once."""
+    all items, so each layer's weights are cast up once.  ``attention``
+    is the sublayer, called as ``gqa_attention`` is (the default)."""
+    attend = gqa_attention if attention is None else attention
     plain_precision()
     lin = Linear(mode)
     dev = params["embed"].device
@@ -238,8 +250,8 @@ def served_logits(params: Dict[str, Any], arch: Dict[str, Any],
         lp = cast(layer_params(params, arch, i), lin)
         for j, ((prompt, _, bucket), pos) in enumerate(zip(items, poss)):
             x = xs[j]
-            x = x + attention(rmsnorm(x, lp["ln1"]["scale"]), lp["attn"],
-                              lin, arch, pos, bucket, cache_len)
+            x = x + attend(rmsnorm(x, lp["ln1"]["scale"]), lp["attn"],
+                           lin, arch, pos, bucket, cache_len)
             h = rmsnorm(x, lp["ln2"]["scale"])
             if i >= moe_from:
                 gs = routing_group(bucket)

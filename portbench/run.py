@@ -48,6 +48,8 @@ for _p in (ROOT / "src", ROOT):
     if str(_p) not in sys.path:
         sys.path.insert(0, str(_p))
 
+from portbench import counts as plain_counts  # noqa: E402
+
 #: modules a run may not load, compared by their whole top-level name
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 #: the profiled stretch of a traced run (s), by loop kind
@@ -81,7 +83,8 @@ def forbidden_modules() -> List[str]:
 # --------------------------------------------------------------------------
 @dataclasses.dataclass
 class Cell:
-    """A cell's pieces, found by name (``spec.py``)."""
+    """A cell's pieces, found by name (``spec.py``): ``weights``,
+    ``reference`` and ``counts`` are its configuration's modules."""
 
     name: str
     entry: Dict[str, Any]
@@ -91,6 +94,9 @@ class Cell:
     own: Dict[str, Any]
     arch: Dict[str, Any]
     geom: Dict[str, Any]
+    weights: Any
+    reference: Any
+    counts: Any
     rate_scale: float = 1.0
 
     @classmethod
@@ -109,7 +115,9 @@ class Cell:
             mix = traffic.scaled(mix, config["smoke"]["scale"],
                                  config["smoke"].get("output_scale"))
         return cls(name, entry, bench, config, mix, spec.cell(name), arch,
-                   geom, rate_scale)
+                   geom, spec.module(config, "weights"),
+                   spec.module(config, "reference"),
+                   spec.module(config, "counts"), rate_scale)
 
     @property
     def open(self) -> bool:
@@ -118,7 +126,8 @@ class Cell:
 
 @dataclasses.dataclass
 class Context:
-    """What the metric readers read (``readers.py``)."""
+    """What the metric readers read (``readers.py``); ``counts`` is the
+    configuration's model arithmetic."""
 
     seconds: float
     t_open: float
@@ -134,6 +143,7 @@ class Context:
     stretch_rows: List[int] = dataclasses.field(default_factory=list)
     stretch_prefills: List[Tuple[int, int]] = dataclasses.field(
         default_factory=list)
+    counts: Any = plain_counts
 
 
 # --------------------------------------------------------------------------
@@ -141,13 +151,12 @@ def build(cell: Cell, seed: int, device: str):
     """(weights, engine) as the program serves by default."""
     from repro_torch.configs.base import ModelConfig
     from repro_torch.serving.engine import ServingEngine
-    from portbench import weights
-    params = weights.draw(cell.arch, seed, device)
+    params = cell.weights.draw(cell.arch, seed, device)
     engine = ServingEngine(params, ModelConfig(**cell.arch), **cell.geom)
-    if device == "cuda" and engine.attn_backends != {"prefill": "cuda",
-                                                     "decode": "cuda"}:
+    kinds = engine.attn_backends
+    if device == "cuda" and (not kinds or set(kinds.values()) != {"cuda"}):
         raise RuntimeError(f"the engine resolved its attention to "
-                           f"{engine.attn_backends}, not the kernels")
+                           f"{kinds}, not the kernels")
     return params, engine
 
 
@@ -211,14 +220,14 @@ def telemetry_spans(engine: Any) -> List[Tuple[str, float, float]]:
 def judge_run(params: Any, cell: Cell, finished: List[Any], seed: int,
               mode: str = "f32") -> Tuple[Dict[str, float], int]:
     """(the compared numbers, served tokens compared) for a sample of the
-    finished requests against the reference in ``mode``."""
-    from portbench import judge, reference
+    finished requests against the cell's reference in ``mode``."""
+    from portbench import judge
     chosen = judge.sample(finished, seed)
     items = [(list(r.prompt), list(r.generated),
               min(b for b in cell.geom["prefill_buckets"]
                   if r.prompt_len <= b)) for r in chosen]
-    logits = reference.served_logits(params, cell.arch, items,
-                                     cell.geom["cache_len"], mode=mode)
+    logits = cell.reference.served_logits(params, cell.arch, items,
+                                          cell.geom["cache_len"], mode=mode)
     gaps = [judge.gaps(lg, r.generated) for lg, r in zip(logits, chosen)]
     return judge.numbers(gaps), sum(len(r.generated) for r in chosen)
 
@@ -293,7 +302,7 @@ def _run(args: argparse.Namespace, device: Optional[str], smoke: bool,
     t_waited = max(loop.clock(), t_close)
     ctx = Context(seconds=args.seconds, t_open=t_open, t_close=t_close,
                   t_waited=t_waited, requests=loop.requests, arch=cell.arch,
-                  geom=cell.geom, setup_s=setup_s)
+                  geom=cell.geom, setup_s=setup_s, counts=cell.counts)
     breakdown = None
     device_info: Dict[str, Any] = {}
     stretches: Dict[str, Any] = {}

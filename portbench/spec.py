@@ -4,25 +4,39 @@
   * ``configs/<config>.json`` (the entry's ``file``): the model's sizes as
     run (``arch``, the port's ``ModelConfig`` fields), the engine's
     geometry, the source, what was assumed, and the CPU tests' ``smoke``
-    sizes;
+    sizes; and, where the model needs its own, the files of its weight
+    layout, reference and arithmetic (``module``);
   * ``traffic/<traffic>.json``: the mix's parameters (``traffic.py``);
   * ``cells/<cell>.json``: what belongs to one cell alone: the open
     loop's rate and the limits of the numbers ``judge.py`` compares;
-  * ``metrics/<metric>.py``: one reader a metric (``read(ctx)``).
+  * ``metrics/<metric>.py``: one reader a metric (``read(ctx)``);
+  * a configuration's ``"weights"``, ``"reference"`` and ``"counts"``:
+    paths relative to this directory of the modules that draw its weights
+    (``draw``), compute its plain reference (``served_logits``) and count
+    its model flops (``prefill_flops``, ``decode_token_flops``); without
+    the key, ``weights.py``, ``reference.py`` and ``counts.py``.
 
-A later cell, mix or metric is a new file and a new entry; no file here
-names one.
+A later cell, mix, metric or model is a new file and a new entry; no file
+here names one.
 """
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
+import re
+import sys
 from pathlib import Path
+from types import ModuleType
 from typing import Any, Callable, Dict, List
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+
+#: what a configuration's own module of each kind has to give
+MODULE_FUNCTIONS = {"weights": ("draw",), "reference": ("served_logits",),
+                    "counts": ("prefill_flops", "decode_token_flops")}
 
 
 def load_json(path: Path) -> Dict[str, Any]:
@@ -83,3 +97,25 @@ def reader(name: str) -> Callable[[Any], Any]:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def module(config: Dict[str, Any], kind: str) -> ModuleType:
+    """The configuration's module of ``kind`` (``weights``, ``reference``
+    or ``counts``): the file its key names, loaded once a process, or
+    ``portbench.<kind>`` where it names none."""
+    if kind not in MODULE_FUNCTIONS:
+        raise KeyError(f"no module kind {kind!r}")
+    if kind not in config:
+        return importlib.import_module(f"portbench.{kind}")
+    path = HERE / config[kind]
+    name = "portbench._config_" + re.sub(r"\W", "_", config[kind])
+    mod = sys.modules.get(name)
+    if mod is None or Path(mod.__file__) != path:
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules[name] = mod
+    missing = [f for f in MODULE_FUNCTIONS[kind] if not hasattr(mod, f)]
+    if missing:
+        raise AttributeError(f"{path} gives no {missing}")
+    return mod

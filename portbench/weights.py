@@ -12,13 +12,14 @@ The layout is the port's ``models/transformer.py`` parameter tree
 (``embed``, ``unembed``, ``final_norm``, ``eager`` layers by id,
 ``segments`` as lists of per-layer dicts), built from the config's sizes
 here; nothing of the port's ``init_params`` is called.  The reference
-reads the same tensors.
+reads the same tensors.  A configuration with a layout of its own
+(``spec.module``) gives ``draw`` its own leaves, drawn alike.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -87,6 +88,10 @@ def leaves(arch: Dict[str, Any]) -> List[Tuple[Tuple[Any, ...],
     return out
 
 
+#: ``draw``'s default leaves (its argument ``leaves`` hides the function)
+layout = leaves
+
+
 def _put(tree: Dict[str, Any], path: Tuple[Any, ...], value: Any) -> None:
     node = tree
     for key, nxt in zip(path[:-1], path[1:]):
@@ -99,10 +104,15 @@ def _put(tree: Dict[str, Any], path: Tuple[Any, ...], value: Any) -> None:
     node[path[-1]] = value
 
 
-def draw(arch: Dict[str, Any], seed: int, device) -> Dict[str, Any]:
-    """The parameter tree for ``arch`` drawn on ``device`` from ``seed``."""
+def draw(arch: Dict[str, Any], seed: int, device,
+         leaves: Optional[List[Tuple[Tuple[Any, ...], Tuple[int, ...],
+                                     Optional[float]]]] = None
+         ) -> Dict[str, Any]:
+    """The parameter tree for ``arch`` drawn on ``device`` from ``seed``:
+    ``leaves`` (path, shape, scale; ``layout(arch)`` by default), then the
+    final norm's scale."""
     gen = torch.Generator(device=device).manual_seed(int(seed) % (1 << 63))
-    specs = leaves(arch)
+    specs = layout(arch) if leaves is None else leaves
     offsets, total = [], 0
     for _, shape, _ in specs:
         offsets.append(total)
